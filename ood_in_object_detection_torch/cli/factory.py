@@ -1,0 +1,53 @@
+"""OoD method factory (port of ood_in_object_detection_tpu/cli/factory.py;
+reference select_ood_detection_method, ood_evaluation.py:179-289)."""
+
+from __future__ import annotations
+
+from ..ood.methods import (DISTANCE_METHODS, DistanceOODMethod, FusionOODMethod,
+                           LOGITS_METHODS, LogitsOODMethod)
+
+
+def resolve_model_name(model_version: str, scale: str) -> str:
+    """The build_model name of a (family, scale) pair; only yolov8 is ported."""
+    if model_version != "yolov8":
+        raise NotImplementedError(
+            f"{model_version}: only yolov8 is ported so far (ROADMAP.md A8, the other "
+            "YOLO families)")
+    if scale not in "nsmlx":
+        raise SystemExit(f"yolov8 has no '{scale}' scale; valid scales: n, s, m, l, x")
+    return f"yolov8{scale}"
+
+
+def build_ood_method(name: str, cluster_method: str = "one",
+                     cluster_optimization_metric: str = "silhouette",
+                     fusion_strategy: str = "none", temperature_energy: float = 1.0,
+                     temperature_odin: float = 1000.0, use_values_before_sigmoid: bool = True):
+    """A logits, distance or fusion method from its CLI name, recursively for
+    'fusion-M1-M2[-M3]' (each distance member takes the next of the
+    '-'-separated cluster methods)."""
+    if name.startswith("fusion-"):
+        parts = name.split("-")[1:]
+        if len(parts) not in (2, 3):
+            raise ValueError(f"fusion needs 2 or 3 members: {name}")
+        cluster_methods = cluster_method.split("-")
+        members = []
+        ci = 0
+        for p in parts:
+            m = build_ood_method(p, cluster_methods[min(ci, len(cluster_methods) - 1)],
+                                 cluster_optimization_metric, "none", temperature_energy,
+                                 temperature_odin, use_values_before_sigmoid)
+            ci += isinstance(m, DistanceOODMethod)
+            members.append(m)
+        strategy = fusion_strategy if fusion_strategy != "none" else "and"
+        if len(parts) == 3 and strategy != "vote":
+            strategy = "vote" if fusion_strategy == "none" else fusion_strategy
+        return FusionOODMethod(members, strategy=strategy, name=name)
+    if name in LOGITS_METHODS:
+        temper = {"Energy": temperature_energy, "ODIN": temperature_odin}.get(name, 1.0)
+        return LogitsOODMethod(name, temper=temper,
+                               use_values_before_sigmoid=use_values_before_sigmoid)
+    if name in DISTANCE_METHODS:
+        return DistanceOODMethod.from_name(
+            name, cluster_method=cluster_method,
+            cluster_optimization_metric=cluster_optimization_metric)
+    raise ValueError(f"unknown OoD method {name}")

@@ -1,0 +1,298 @@
+"""OoD evaluation CLI of the PyTorch port, with the flag names of
+``ood_in_object_detection_tpu/cli/ood_eval.py`` (the reference's
+ood_evaluation.py Tap parser, :33-176).
+
+Flow (reference main(), ood_evaluation.py:662-846): build the detector and
+the InD/OoD datasets -> method factory -> InD configuration (activations ->
+clusters -> scores -> thresholds, cached under storage/) -> evaluate each
+OoD dataset -> CSV/XLSX rows. Datasets, constants and results writing reuse
+the JAX package's NumPy modules (they import no jax); the hyperparameters
+are the port's own (core/config.py). Flags whose features are not ported yet raise
+NotImplementedError naming their ROADMAP.md item.
+
+    python -m ood_in_object_detection_torch.cli.ood_eval --ood_method MSP \\
+        --ind_dataset ind.yaml --ood_datasets ood.yaml --device 0
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import pickle
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ood_in_object_detection_tpu import constants as C
+from ood_in_object_detection_tpu.data import DetectionDataset, PaddedBatcher
+from ood_in_object_detection_tpu.eval.results_writer import (
+    append_results, fill_dataset_results, finalize_row, method_info_row,
+)
+
+from ..core.config import CUSTOM_HYP, hyperparams_to_dict
+from ..engine import Detector
+from ..ood.methods import DistanceOODMethod
+from ..ood.pipeline import (_leaf_methods, assign_fitted_state, evaluate_method,
+                            extract_ind_activations)
+from .factory import build_ood_method, resolve_model_name
+
+log = logging.getLogger("ood_eval")
+
+# flag -> the ROADMAP.md item that will port it
+UNPORTED_FLAGS = {
+    "enhanced_unk_localization": "A7 (EUL)",
+    "benchmark": "the BENCHMARK_MODE cache and benchmark sweeps",
+    "data_parallel": "A12 (multi-GPU)",
+    "export_bundle": "A11 (serving/export)",
+    "bf16": "--bf16 with kernel K2's bf16 path",
+    "model_path": "A11 (checkpoints)",
+    "dump_fusion_scores": "the fusion score dump",
+    "compile_cache": "none: the eager port compiles nothing ahead of time",
+}
+
+# per-task known-class counts (reference select_number_of_classes_owod)
+OWOD_TASK_NC = {"t1": 20, "t2": 40, "t3": 60, "t4": 80, "all_task_test": 80}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("ood_eval", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--ood_method", required=True, help="method name or fusion-M1-M2[-M3]")
+    p.add_argument("--model", default="l", choices=["n", "s", "m", "b", "l", "x", "t", "c", "e"])
+    p.add_argument("--model_version", default="yolov8",
+                   choices=["yolov8", "yolov9", "yolov10", "yolo11", "yolo12"])
+    p.add_argument("--model_path", default="", help="checkpoint dir (not ported)")
+    p.add_argument("--device", default="0",
+                   help="CUDA device index, or 'cpu' for the plain PyTorch versions")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--workers", type=int, default=2)
+    p.add_argument("--name", default="prueba")
+    p.add_argument("--logdir", default="logs")
+    p.add_argument("--ind_dataset", required=True, help="dataset yaml path")
+    p.add_argument("--ood_datasets", nargs="+", required=True, help="dataset yaml paths")
+    p.add_argument("--ind_split", default="train", choices=["train", "val", "test"])
+    p.add_argument("--ood_split", default="val", choices=["train", "val", "test"])
+    tasks = ["", "t1", "t2", "t3", "t4", "all_task_test"]
+    p.add_argument("--owod_task_ind", default="", choices=tasks)
+    p.add_argument("--owod_task_ood", default="", choices=tasks)
+    p.add_argument("--owod_tasks_dir", default=str(
+        Path(__file__).resolve().parents[2] / "datasets_utils" / "owod" / "tasks"))
+    p.add_argument("--conf_thr_train", type=float, default=0.15)
+    p.add_argument("--conf_thr_test", type=float, default=0.15)
+    p.add_argument("--tpr_thr", type=float, default=0.95)
+    p.add_argument("--which_split", default="train", choices=["train", "val", "train_val"])
+    p.add_argument("--cluster_method", default="one")
+    p.add_argument("--cluster_optimization_metric", default="silhouette",
+                   choices=list(C.AVAILABLE_CLUSTER_OPTIMIZATION_METRICS))
+    p.add_argument("--ind_info_creation_option", default="valid_preds_one_stride",
+                   choices=C.IND_INFO_CREATION_OPTIONS)
+    p.add_argument("--which_internal_activations", default="roi_aligned_ftmaps",
+                   choices=C.INTERNAL_ACTIVATIONS_EXTRACTION_OPTIONS)
+    p.add_argument("--remove_orphans", action="store_true")
+    p.add_argument("--visualize_clusters", action="store_true")
+    p.add_argument("--use_values_before_sigmoid", action="store_true", default=True)
+    p.add_argument("--no_use_values_before_sigmoid", dest="use_values_before_sigmoid",
+                   action="store_false")
+    p.add_argument("--fusion_strategy", default="none", choices=["and", "or", "score", "none"])
+    p.add_argument("--dump_fusion_scores", default="", help="not ported")
+    p.add_argument("--enhanced_unk_localization", action="store_true", help="not ported")
+    p.add_argument("--visualize_oods", action="store_true")
+    p.add_argument("--temperature_energy", type=float, default=1.0)
+    p.add_argument("--temperature_odin", type=float, default=1000.0)
+    p.add_argument("--benchmark", default="", choices=[""] + C.AVAILABLE_BENCHMARKS,
+                   help="not ported")
+    p.add_argument("--load_ind_activations", action="store_true")
+    p.add_argument("--load_clusters", action="store_true")
+    p.add_argument("--load_thresholds", action="store_true")
+    p.add_argument("--img_size", type=int, default=640)
+    p.add_argument("--bf16", action="store_true", help="not ported")
+    p.add_argument("--compute_metrics", action="store_true", default=True)
+    p.add_argument("--data_parallel", action="store_true", help="not ported")
+    p.add_argument("--export_bundle", default="", help="not ported")
+    p.add_argument("--export_bundle_batch", type=int, default=1)
+    p.add_argument("--compile_cache", default="", help="not ported")
+    return p
+
+
+def check_ported(args) -> None:
+    for flag, item in UNPORTED_FLAGS.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP.md: {item})")
+    if any(c != "one" for c in args.cluster_method.split("-")):
+        raise NotImplementedError(f"--cluster_method {args.cluster_method}: only 'one' is "
+                                  "ported (ROADMAP.md, the other cluster methods)")
+
+
+def torch_device(spec: str) -> torch.device:
+    """'cpu' or a CUDA index; a CUDA device that is missing raises."""
+    if spec == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"--device {spec}: CUDA is not available (pass --device cpu "
+                           "to run the plain PyTorch versions on the CPU)")
+    return torch.device(f"cuda:{int(spec)}")
+
+
+def cache_paths(args, method) -> Dict[str, Path]:
+    """Cache keys of the reference (ood_evaluation.py:291-336), under a
+    'torch_' prefix so the two packages never read each other's files."""
+    internal = "logits" if not method.is_distance_method else "roi_aligned_ftmaps"
+    base = f"torch_{internal}_conf{args.conf_thr_train}_{args.model_version}{args.model}"
+    if method.is_distance_method:
+        base += f"_{args.ind_info_creation_option}"
+    C.STORAGE_PATH.mkdir(parents=True, exist_ok=True)
+    return {
+        "activations": C.STORAGE_PATH / f"{base}_activations.pkl",
+        "clusters": C.STORAGE_PATH / f"{base}_{getattr(method, 'cluster_method', 'None')}_clusters.pkl",
+        "thresholds": C.STORAGE_PATH / f"{base}_tpr{args.tpr_thr}_thresholds.pkl",
+    }
+
+
+def load_detector(args, default_nc: int = 20) -> Detector:
+    nc = OWOD_TASK_NC.get(args.owod_task_ind, 0) or default_nc
+    name = resolve_model_name(args.model_version, args.model)
+    return Detector.create(name, nc=nc, img_size=args.img_size, device=torch_device(args.device))
+
+
+def load_dataset(args, path_or_name: str, split: str, owod_task: str) -> DetectionDataset:
+    return DetectionDataset.from_yaml(path_or_name, split=split, owod_task=owod_task or None,
+                                      tasks_dir=args.owod_tasks_dir or None)
+
+
+def _batches(args, ds) -> list:
+    return list(PaddedBatcher(ds, args.batch_size, args.img_size))
+
+
+def _load_or_extract(args, detector, method, batches, cache_file, logger):
+    if args.load_ind_activations and cache_file.exists():
+        logger.info("loaded InD activations from %s", cache_file)
+        return pickle.loads(cache_file.read_bytes())
+    t0 = time.perf_counter()
+    acts = extract_ind_activations(detector, batches, method, args.conf_thr_train)
+    logger.info("extracted InD activations in %.1fs", time.perf_counter() - t0)
+    cache_file.write_bytes(pickle.dumps(acts))
+    return acts
+
+
+def _concat_acts(a, b):
+    """Per-leaf concat of train + val activations (reference
+    concat_arrays_inside_list_of_lists, ood_evaluation.py:599-640)."""
+    def cat(x, y):
+        if isinstance(x, list):
+            return [cat(xi, yi) for xi, yi in zip(x, y)]
+        if y.shape[0] == 0:
+            return x
+        if x.shape[0] == 0:
+            return y
+        return np.concatenate([x, y], axis=0)
+
+    return {k: cat(a[k], b[k]) for k in a}
+
+
+def configure_ind(args, detector, method, batches, logger, val_batches=None) -> None:
+    """InD pipeline with disk caching (reference
+    execute_pipeline_for_in_distribution_configuration, ood_evaluation.py:398):
+    clusters always come from the train activations; the threshold scores
+    from the split that --which_split names."""
+    paths = cache_paths(args, method)
+    leaves = _leaf_methods(method)
+
+    def by_leaf(acts):  # re-key by position (pickles lose object ids)
+        return {id(m): v for m, v in zip(leaves, acts.values())}
+
+    acts = by_leaf(_load_or_extract(args, detector, method, batches,
+                                    paths["activations"], logger))
+    if args.which_split == "train":
+        score_acts = acts
+    else:
+        if val_batches is None:
+            raise ValueError(f"which_split={args.which_split} needs val batches")
+        val_file = paths["activations"].with_name(
+            paths["activations"].name.replace(".pkl", "_val.pkl"))
+        acts_val = by_leaf(_load_or_extract(args, detector, method, val_batches,
+                                            val_file, logger))
+        score_acts = acts_val if args.which_split == "val" else _concat_acts(acts, acts_val)
+
+    clusters_loaded = False
+    if args.load_clusters and paths["clusters"].exists():
+        assign_fitted_state(method, clusters=pickle.loads(paths["clusters"].read_bytes()))
+        clusters_loaded = True
+        logger.info("loaded clusters from %s", paths["clusters"])
+    for m in leaves:
+        if isinstance(m, DistanceOODMethod) and not (clusters_loaded and m.clusters):
+            m.generate_clusters(acts[id(m)])
+        m.generate_thresholds(m.compute_scores_from_activations(score_acts[id(m)]),
+                              args.tpr_thr)
+    if args.load_thresholds and paths["thresholds"].exists():
+        assign_fitted_state(method, thresholds=pickle.loads(paths["thresholds"].read_bytes()))
+        logger.info("loaded thresholds from %s", paths["thresholds"])
+    paths["clusters"].write_bytes(pickle.dumps([getattr(m, "clusters", None) for m in leaves]))
+    paths["thresholds"].write_bytes(pickle.dumps([m.thresholds for m in leaves]))
+    paths["thresholds"].with_suffix(".json").write_text(json.dumps({
+        k: getattr(args, k) for k in (
+            "ood_method", "cluster_method", "cluster_optimization_metric",
+            "fusion_strategy", "temperature_energy", "temperature_odin",
+            "use_values_before_sigmoid", "which_internal_activations",
+            "ind_info_creation_option", "tpr_thr", "conf_thr_train")}))
+
+
+def _dataset_key(yaml_name: str) -> str:
+    for key in ("coco_ood", "coco_mixed", "owod"):
+        if key in yaml_name:
+            return key
+    return "coco_ood"
+
+
+def run_eval(args, detector, method, logger) -> List[Dict]:
+    row = method_info_row(method, args.which_split, args.conf_thr_train,
+                          args.conf_thr_test, args.tpr_thr, args.fusion_strategy)
+    for ds_path in args.ood_datasets:
+        ds = load_dataset(args, ds_path, args.ood_split, args.owod_task_ood)
+        known = list(range(ds.number_of_classes))
+        names = ds.names[: ds.number_of_classes] + ["unknown"]
+        vis_dir = (str(C.RESULTS_PATH / "visualizations" / f"{args.name}_{ds.yaml_name}")
+                   if args.visualize_oods else None)
+        metrics = evaluate_method(detector, _batches(args, ds), method, known, names,
+                                  conf_thr_test=args.conf_thr_test, logger=logger,
+                                  visualize_dir=vis_dir)
+        logger.info("%s -> %s", ds.yaml_name, metrics)
+        fill_dataset_results(row, _dataset_key(ds.yaml_name), metrics, args.owod_task_ood)
+    row = finalize_row(row, f"{args.model_version}{args.model}", vars(args))
+    row["custom_hyp"] = str(hyperparams_to_dict(CUSTOM_HYP))  # the port's tree, not the JAX one
+    return [row]
+
+
+def main(argv=None) -> List[Dict]:
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    logging.basicConfig(level=logging.INFO)
+    if args.remove_orphans:
+        CUSTOM_HYP.clusters.REMOVE_ORPHANS = True
+    if args.visualize_clusters:
+        CUSTOM_HYP.clusters.VISUALIZE = True
+    ind = load_dataset(args, args.ind_dataset, args.ind_split, args.owod_task_ind)
+    detector = load_detector(args, default_nc=ind.number_of_classes)
+    method = build_ood_method(
+        args.ood_method, args.cluster_method, args.cluster_optimization_metric,
+        args.fusion_strategy, args.temperature_energy, args.temperature_odin,
+        use_values_before_sigmoid=args.use_values_before_sigmoid)
+    for m in _leaf_methods(method):
+        if isinstance(m, DistanceOODMethod):
+            m.ind_info_creation_option = args.ind_info_creation_option
+            if args.which_internal_activations in C.FTMAPS_RELATED_OPTIONS:
+                m.which_internal_activations = args.which_internal_activations
+    val_batches = (_batches(args, load_dataset(args, args.ind_dataset, "val", args.owod_task_ind))
+                   if args.which_split in ("val", "train_val") else None)
+    configure_ind(args, detector, method, _batches(args, ind), log, val_batches=val_batches)
+    rows = run_eval(args, detector, method, log)
+    out = append_results(rows, C.RESULTS_PATH, args.name)
+    log.info("results written to %s", out)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,91 @@
+"""Detector facade: one predict step with every OoD tap.
+
+Port of ood_in_object_detection_tpu/engine.py. ``Detector.predict`` runs
+normalise -> YOLOv8 forward -> lazy DFL decode + top-k -> greedy NMS (kernel
+K1) -> RoI and exact-position taps (kernel K2) -> box clip, and returns a
+``PredictOutput`` with the JAX package's field set and layouts: images come
+in as (B, H, W, 3), neck maps leave as (B, H/s, W/s, C).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from .models import build_model, init_weights
+from .ops.fused_detect import fused_detect
+from .ops.nms import Detections
+from .ops.roi_align import roi_and_exact_batched
+
+
+class PredictOutput(NamedTuple):
+    det: Detections            # (B, max_det, ...) boxes xyxy / conf / cls / valid
+    logits: torch.Tensor       # (B, max_det, nc) pre-sigmoid class logits per box
+    stride_level: torch.Tensor  # (B, max_det) in {0, 1, 2}
+    anchor_idx: torch.Tensor   # (B, max_det) flat anchor index
+    roi_feats: torch.Tensor    # (B, max_det, Cmax) 1x1 RoI-aligned neck features
+    exact_feats: torch.Tensor  # (B, max_det, Cmax) neck feature at the box's anchor cell
+    neck: tuple                # 3 x (B, H/s, W/s, C_s) PAN neck maps
+
+    @property
+    def p3(self):
+        return self.neck[0]
+
+
+@dataclasses.dataclass
+class Detector:
+    """Build with ``Detector.create('yolov8l', nc=20, device='cuda')``."""
+
+    model: torch.nn.Module
+    img_size: int = 640
+    # 0 = torchvision's adaptive ceil(roi_span) sampling (the reference's
+    # roi_align default, predict.py:64-70); >0 = fixed SxS grid
+    roi_samples: int = 0
+
+    @classmethod
+    def create(cls, name: str, nc: int = 80, img_size: int = 640, device="cpu",
+               generator: Optional[torch.Generator] = None) -> "Detector":
+        """A seeded random init from ``generator`` (seed 0 by default), made
+        on the CPU and moved to ``device``. Load trained or JAX-exported
+        weights with utils/weights.py:load_jax_variables."""
+        model = build_model(name, nc=nc)
+        init_weights(model, generator or torch.Generator().manual_seed(0))
+        return cls(model=model.to(device).eval(), img_size=img_size)
+
+    @property
+    def nc(self) -> int:
+        return self.model.nc
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    @torch.no_grad()
+    def predict(self, images, conf_thres=0.25, iou_thres: float = 0.7, max_det: int = 300,
+                pre_nms_k: int = 1024) -> PredictOutput:
+        """(B, H, W, 3) uint8 (normalised here, on the device) or float images
+        in [0, 1] -> PredictOutput. ``conf_thres`` may be a 0-dim tensor."""
+        x = torch.as_tensor(images).to(self.device)
+        if x.dtype == torch.uint8:
+            x = x.to(torch.float32) * torch.tensor(1.0 / 255.0, device=x.device)
+        raw, neck = self.model(x.to(torch.float32).permute(0, 3, 1, 2).contiguous())
+        ct = torch.as_tensor(conf_thres, dtype=torch.float32, device=x.device)
+        det, logits = fused_detect(raw, self.nc, ct, iou_thres=iou_thres,
+                                   max_det=max_det, pre_nms_k=pre_nms_k)
+        # level from the flat anchor index against the level boundaries
+        b0 = raw[0].shape[2] * raw[0].shape[3]
+        b1 = b0 + raw[1].shape[2] * raw[1].shape[3]
+        level = (det.anchor_idx >= b0).long() + (det.anchor_idx >= b1).long()
+        neck = tuple(f.permute(0, 2, 3, 1).contiguous() for f in neck)
+        roi, exact = roi_and_exact_batched(neck, det.boxes, det.anchor_idx, level,
+                                           img_w=self.img_size, samples=self.roi_samples)
+        # the reference RoI-aligns the UNclipped NMS boxes and clips after
+        # (detect/predict.py:176-199, utils/ops.py:96,536)
+        det = det._replace(boxes=det.boxes.clamp(0.0, float(self.img_size)))
+        return PredictOutput(det, logits, level, det.anchor_idx, roi, exact, neck)
+
+    def neck_channels(self) -> Tuple[int, ...]:
+        """Per-level neck channel counts (to slice roi_feats padding)."""
+        return tuple(self.model.neck_channels)

@@ -1,0 +1,89 @@
+"""YOLOv8 Detect head (port of ood_in_object_detection_tpu/models/head.py).
+
+The head returns the raw per-level maps (B, 4*REG_MAX + nc, H, W) with
+pre-sigmoid class logits; decoding happens lazily in ops/fused_detect.py.
+:func:`decode_detections` is the full-anchor decode, kept as the test
+oracle of that lazy path.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from .layers import Conv
+
+REG_MAX = 16
+STRIDES = (8, 16, 32)
+
+
+class DFL(nn.Module):
+    """Holds the reference's frozen DFL conv (weights arange(REG_MAX)) so
+    that ultralytics-named state_dicts load; the decode does not call it."""
+
+    def __init__(self, c1: int = REG_MAX):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, 1, 1, bias=False).requires_grad_(False)
+        with torch.no_grad():
+            self.conv.weight.copy_(torch.arange(c1, dtype=torch.float32).view(1, c1, 1, 1))
+
+
+class Detect(nn.Module):
+    """Decoupled v8 head: box branch cv2 (Conv3-Conv3-Conv1 to 4*REG_MAX)
+    and class branch cv3 (Conv3-Conv3-Conv1 to nc) per level."""
+
+    def __init__(self, nc: int, ch: Sequence[int]):
+        super().__init__()
+        self.nc = nc
+        c2 = max(16, ch[0] // 4, REG_MAX * 4)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(
+            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * REG_MAX, 1))
+            for x in ch)
+        self.cv3 = nn.ModuleList(
+            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1))
+            for x in ch)
+        self.dfl = DFL(REG_MAX)
+
+    def bias_init(self) -> None:
+        """Box bias 1.0, class bias log(5 / nc / (640 / s)^2) (reference
+        Detect.bias_init; the JAX package's Conv2dRaw bias inits)."""
+        with torch.no_grad():
+            for box, cls, s in zip(self.cv2, self.cv3, STRIDES):
+                box[-1].bias.fill_(1.0)
+                cls[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        return [torch.cat([box(x), cls(x)], dim=1)
+                for x, box, cls in zip(feats, self.cv2, self.cv3)]
+
+
+def make_anchors(hw_per_level: Sequence[Tuple[int, int]], strides=STRIDES,
+                 offset: float = 0.5, device=None):
+    """Anchor centres (A, 2) in grid units (x fastest) and per-anchor stride."""
+    pts, sts = [], []
+    for (h, w), s in zip(hw_per_level, strides):
+        sx = torch.arange(w, dtype=torch.float32, device=device) + offset
+        sy = torch.arange(h, dtype=torch.float32, device=device) + offset
+        gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+        pts.append(torch.stack([gx, gy], dim=-1).reshape(-1, 2))
+        sts.append(torch.full((h * w,), float(s), device=device))
+    return torch.cat(pts), torch.cat(sts)
+
+
+def decode_detections(raw_levels: Sequence[torch.Tensor], nc: int):
+    """Full-anchor decode of raw (B, 4*REG_MAX+nc, H, W) maps ->
+    boxes_xywh (B, A, 4) pixels, cls_logits (B, A, nc), anchor_strides (A,)."""
+    hw = [(f.shape[2], f.shape[3]) for f in raw_levels]
+    anchors, strides = make_anchors(hw, device=raw_levels[0].device)
+    x = torch.cat([f.flatten(2) for f in raw_levels], dim=2).transpose(1, 2)
+    b, a, _ = x.shape
+    probs = torch.softmax(x[..., : 4 * REG_MAX].float().reshape(b, a, 4, REG_MAX), dim=-1)
+    dist = probs @ torch.arange(REG_MAX, dtype=torch.float32, device=x.device)
+    x1y1 = anchors[None] - dist[..., :2]
+    x2y2 = anchors[None] + dist[..., 2:]
+    boxes = torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1) * strides[None, :, None]
+    return boxes, x[..., 4 * REG_MAX:], strides

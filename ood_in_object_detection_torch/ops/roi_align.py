@@ -1,0 +1,195 @@
+"""1x1 RoIAlign and the exact-position tap as one separable contraction per
+level, and kernel K2's wrapper.
+
+Port of ood_in_object_detection_tpu/ops/roi_align.py. Semantics: torchvision
+roi_align with output_size=(1, 1), aligned=False, spatial_scale = map width /
+image width (reference ultralytics/models/yolo/detect/predict.py:64-70),
+adaptive ceil(span) sampling by default; the exact-position tap is the neck
+feature at the box's own anchor cell (reference predict.py:288-325).
+
+A uniform grid of bilinear taps is separable, so the pooled value is
+``sum_h sum_w wy[h] * wx[w] * f[h, w, :]`` with per-axis weight vectors
+(:func:`_axis_weights`, closed form for adaptive sampling). The exact tap is
+the same sum with one-hot axis weights, so both ride one contraction per
+level: :func:`roi_contract`, which launches CUDA kernel K2
+(``csrc/roi_contract.cu``) on CUDA tensors and runs
+:func:`roi_contract_plain` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def _clip(x, lo, hi):
+    """jnp.clip order: minimum(maximum(x, lo), hi)."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _axis_weights(lo: torch.Tensor, span: torch.Tensor, size: int, samples: int) -> torch.Tensor:
+    """Mean-normalised bilinear weights of a uniform axis sample grid on the
+    integer pixel grid -> (..., size). samples > 0: fixed S per axis;
+    samples == 0: torchvision's adaptive S = ceil(span), in closed form."""
+    if samples == 0:
+        return _axis_weights_adaptive(lo, span, size)
+    t = (torch.arange(samples, dtype=torch.float32, device=lo.device) + 0.5) / samples
+    u = lo[..., None] + t * span[..., None]                          # (..., S)
+    u = u.clamp(0.0, size - 1.0)
+    p = torch.arange(size, dtype=torch.float32, device=lo.device)
+    hat = torch.clamp(1.0 - torch.abs(u[..., None] - p), min=0.0)     # (..., S, size)
+    return hat.sum(dim=-2) * (1.0 / samples)
+
+
+def _axis_weights_adaptive(lo: torch.Tensor, span: torch.Tensor, size: int) -> torch.Tensor:
+    """Exact adaptive axis weights in closed form -> (..., size).
+
+    The S = ceil(span) sample coordinates u_s = lo + (s + 0.5) h, h = span/S,
+    are an arithmetic sequence, so the summed hat weight of each cell is a
+    window count plus arithmetic-series sums, with samples outside [0,
+    size-1] clamped to the border cells (line for line the JAX function)."""
+    zero = torch.zeros((), dtype=torch.float32, device=lo.device)
+    n = torch.clamp(torch.ceil(span), min=1.0)
+    h = (span / n)[..., None]
+    lo_ = lo[..., None]
+    n_ = n[..., None]
+    p = torch.arange(size, dtype=torch.float32, device=lo.device)
+
+    def idx(x):  # number of samples with u_s <= x, in [0, n]
+        return _clip(torch.floor((x - lo_) / h - 0.5) + 1.0, zero, n_)
+
+    n_left = idx(0.0)
+    n_in = idx(size - 1.0)
+    a1 = _clip(idx(p - 1.0), n_left, n_in)
+    a2 = _clip(idx(p), n_left, n_in)
+    a3 = _clip(idx(p + 1.0), n_left, n_in)
+
+    def series(a, b):  # sum of u_s for s in [a, b)
+        return (b - a) * lo_ + h * (b * b - a * a) * 0.5
+
+    left = (a2 - a1) * (1.0 - p) + series(a1, a2)
+    right = (a3 - a2) * (1.0 + p) - series(a2, a3)
+    w = left + right
+    w = w + torch.where(p == 0.0, n_left, zero)
+    w = w + torch.where(p == size - 1.0, n_ - n_in, zero)
+    return w / n_
+
+
+def roi_contract_plain(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch contraction: einsum of Q = outer(wy, wx) with the flat
+    map. (B, H, W, C), (B, N2, W), (B, N2, H) -> (B, N2, C) f32."""
+    b, h, w, c = fmap.shape
+    n2 = wx.shape[1]
+    q = (wy[..., :, None] * wx[..., None, :]).reshape(b, n2, h * w).to(fmap.dtype)
+    return torch.einsum("bnk,bkc->bnc", q, fmap.reshape(b, h * w, c)).float()
+
+
+def roi_contract(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
+    """``out[b,n,c] = sum_h sum_w wy[b,n,h] wx[b,n,w] fmap[b,h,w,c]``:
+    (B, H, W, C), (B, N2, W) f32, (B, N2, H) f32 -> (B, N2, C) f32.
+
+    Replaces ops/pallas/roi.py:roi_matmul_level_two_stage. CUDA tensors
+    launch kernel K2 (csrc/roi_contract.cu), which takes f32 maps only (the
+    bf16 path belongs to --bf16, ROADMAP.md); CPU tensors take
+    :func:`roi_contract_plain`."""
+    if fmap.dim() != 4 or wx.dim() != 3 or wy.dim() != 3:
+        raise ValueError("roi_contract: fmap (B,H,W,C), wx (B,N2,W), wy (B,N2,H)")
+    b, h, w, c = fmap.shape
+    if wx.shape[0] != b or wx.shape[2] != w or wy.shape != (b, wx.shape[1], h):
+        raise ValueError(f"roi_contract: shapes fmap {tuple(fmap.shape)}, wx "
+                         f"{tuple(wx.shape)}, wy {tuple(wy.shape)} disagree")
+    if fmap.device.type == "cpu":
+        return roi_contract_plain(fmap, wx, wy)
+    from .kernels import _build
+
+    _build.require_cuda("roi_contract", fmap=fmap, wx=wx, wy=wy)
+    if fmap.dtype != torch.float32:
+        raise NotImplementedError(
+            f"roi_contract: kernel K2 takes f32 maps, got {fmap.dtype} "
+            "(bf16 comes with --bf16, ROADMAP.md)")
+    if wx.dtype != torch.float32 or wy.dtype != torch.float32:
+        raise TypeError("roi_contract: axis weights must be f32")
+    n2 = wx.shape[1]
+    out = torch.empty((b, n2, c), dtype=torch.float32, device=fmap.device)
+    code = _build.launcher("roi_contract")(
+        fmap.data_ptr(), wx.data_ptr(), wy.data_ptr(), b, h, w, c, n2,
+        out.data_ptr(), _build.stream_handle(fmap.device))
+    roi_contract.launches += 1
+    _build.check_launch("roi_contract", code)
+    return out
+
+
+roi_contract.launches = 0
+
+
+def level_axis_weights(fmap_hw: Tuple[int, int], boxes_xyxy: torch.Tensor,
+                       anchor_idx: torch.Tensor, level_idx: torch.Tensor, level: int,
+                       offset: int, img_w: int, samples: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RoI hat rows then exact-tap one-hot rows of one level ->
+    wx (B, 2N, W), wy (B, 2N, H). Rows whose result this level does not
+    supply (a box routed to another level; an anchor of another level) are
+    zero, so the contraction skips them; their output is never selected."""
+    h, w = fmap_hw
+    bx = boxes_xyxy * (w / img_w)  # width ratio, predict.py:69
+    x1, y1 = bx[..., 0], bx[..., 1]
+    bw = torch.clamp(bx[..., 2] - x1, min=1.0)
+    bh = torch.clamp(bx[..., 3] - y1, min=1.0)
+    wx = _axis_weights(x1, bw, w, samples)
+    wy = _axis_weights(y1, bh, h, samples)
+    local = torch.clamp(anchor_idx - offset, 0, h * w - 1)
+    ex_wx = F.one_hot(local % w, w).to(torch.float32)
+    ex_wy = F.one_hot(local // w, h).to(torch.float32)
+    in_level = (anchor_idx >= offset) & (anchor_idx < offset + h * w)
+    used = torch.cat([level_idx == level, in_level], dim=1)[..., None].to(torch.float32)
+    return (torch.cat([wx, ex_wx], dim=1) * used, torch.cat([wy, ex_wy], dim=1) * used)
+
+
+def roi_and_exact_batched(
+    fmaps: Sequence[torch.Tensor],  # per level (B, H_l, W_l, C_l)
+    boxes_xyxy: torch.Tensor,       # (B, N, 4) image pixels
+    anchor_idx: torch.Tensor,       # (B, N) flat anchor index over all levels
+    level_idx: torch.Tensor,        # (B, N) in [0, L)
+    img_w: int,
+    samples: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Level-routed 1x1 RoIAlign and exact-position tap -> two (B, N, Cmax),
+    zero-padded to the widest level."""
+    cmax = max(f.shape[-1] for f in fmaps)
+    n = boxes_xyxy.shape[1]
+    roi_out = exact_out = None
+    off = 0
+    for li, f in enumerate(fmaps):
+        _, h, w, c = f.shape
+        wx, wy = level_axis_weights((h, w), boxes_xyxy, anchor_idx, level_idx, li, off,
+                                    img_w, samples)
+        v = F.pad(roi_contract(f, wx, wy), (0, cmax - c))
+        v_roi, v_ex = v[:, :n], v[:, n:]
+        in_level = (anchor_idx >= off) & (anchor_idx < off + h * w)
+        roi_out = v_roi if roi_out is None else torch.where(
+            (level_idx == li)[..., None], v_roi, roi_out)
+        exact_out = v_ex if exact_out is None else torch.where(
+            in_level[..., None], v_ex, exact_out)
+        off += h * w
+    return roi_out, exact_out
+
+
+def roi_align_1x1_batched_level(fmap: torch.Tensor, boxes_xyxy: torch.Tensor,
+                                spatial_scale: float, samples: int = 0) -> torch.Tensor:
+    """Single-level 1x1 RoIAlign of every box: (B, H, W, C), (B, N, 4) -> (B, N, C)."""
+    _, h, w, _ = fmap.shape
+    bx = boxes_xyxy * spatial_scale
+    x1, y1 = bx[..., 0], bx[..., 1]
+    bw = torch.clamp(bx[..., 2] - x1, min=1.0)
+    bh = torch.clamp(bx[..., 3] - y1, min=1.0)
+    wx = _axis_weights(x1, bw, w, samples).contiguous()
+    wy = _axis_weights(y1, bh, h, samples).contiguous()
+    return roi_contract(fmap, wx, wy).to(fmap.dtype)
+
+
+def all_level_roi(fmaps: Sequence[torch.Tensor], boxes_xyxy: torch.Tensor,
+                  img_w: int) -> List[torch.Tensor]:
+    """Every box RoI-aligned at every level (adaptive sampling)."""
+    return [roi_align_1x1_batched_level(f, boxes_xyxy, f.shape[2] / img_w, samples=0)
+            for f in fmaps]

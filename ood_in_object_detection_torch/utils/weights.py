@@ -1,0 +1,80 @@
+"""Weights across the two packages.
+
+The JAX package's ``utils/weight_import.py:export_state_dict(variables,
+detect_layer_idx=22)`` writes an ultralytics-named, torch-layout numpy
+state_dict; this port names its modules the same way, so that dict loads
+with ``strict=True`` and no renaming table.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+# the detect head's final 1x1 convs: box (cv2) and class (cv3) outputs
+HEAD_OUTPUT_KEY = re.compile(r"^model\.\d+\.cv[23]\.\d\.2\.(weight|bias)$")
+BOX_BIN_SLOPE = 0.5  # spread_detect_head: DFL bias drop per bin
+
+
+def load_jax_variables(model: nn.Module, state_dict: Dict[str, np.ndarray]) -> nn.Module:
+    """Load a numpy state_dict exported from the JAX variables (strict)."""
+    sd = {k: torch.tensor(np.asarray(v)) for k, v in state_dict.items()}
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def numpy_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
+
+
+@torch.no_grad()
+def calibrate_batchnorm(model: nn.Module, images: torch.Tensor) -> nn.Module:
+    """Set every BatchNorm's running statistics to those of one forward of
+    ``images`` (B, 3, H, W), layer by layer, as a trained model's would
+    normalise its activations. A random-init model with identity BN shrinks
+    its activations towards zero with depth, so every anchor would get the
+    same box and confidence; after this pass each channel is unit-scale.
+    The model is left in eval mode."""
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None  # cumulative average: one batch -> its statistics
+    model.train()
+    try:
+        model(images)
+    finally:
+        for m, mom in zip(bns, saved):
+            m.momentum = mom
+        model.eval()
+    return model
+
+
+def spread_detect_head(state_dict: Dict[str, np.ndarray], seed: int,
+                       scale: float = 4.0) -> Dict[str, np.ndarray]:
+    """Seeded spread of the detect head's final 1x1 convs, for random-init
+    models whose confidences and boxes would otherwise be tie-degenerate:
+    each output channel's weights are scaled by U(0.5, 1.5) * ``scale`` and
+    its bias redrawn from N(0, 1). Box (DFL) biases also fall by
+    BOX_BIN_SLOPE per bin, so that boxes span a few cells rather than half
+    the image. The same numpy dict loads into both packages, so both
+    see identical weights. Returns a new dict."""
+    rng = np.random.default_rng(seed)
+    out = dict(state_dict)
+    for k in sorted(state_dict):
+        if not HEAD_OUTPUT_KEY.match(k):
+            continue
+        v = np.asarray(state_dict[k], np.float32)
+        if k.endswith("weight"):
+            f = rng.uniform(0.5, 1.5, v.shape[0]).astype(np.float32) * np.float32(scale)
+            out[k] = v * f.reshape(-1, 1, 1, 1)
+        else:
+            b = rng.normal(0.0, 1.0, v.shape)
+            if ".cv2." in k:  # 4 sides x REG_MAX bins
+                b -= BOX_BIN_SLOPE * (np.arange(v.shape[0]) % (v.shape[0] // 4))
+            out[k] = b.astype(np.float32)
+    return out

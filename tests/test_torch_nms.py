@@ -1,0 +1,165 @@
+"""Port parity for NMS and the lazy detect path (ops/nms.py, kernel K1's
+plain version; ops/fused_detect.py) against the JAX package, on the CPU.
+
+Keep masks must be equal bit for bit: both sides compute the same f32 IoU
+in the same operation order. Decoded boxes, confidences and logits are
+compared within 1e-5 relative; boxes also get atol 2e-3 px, because the
+DFL expectation (up to 15 grid units) sums its 16 terms in another order,
+and a few f32 ulp of it times a stride of 32 reach 1e-3 px."""
+
+import functools
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from ood_in_object_detection_tpu.ops import nms as jnms
+from ood_in_object_detection_tpu.ops.pallas import nms as jpnms
+from ood_in_object_detection_torch.models.head import decode_detections
+from ood_in_object_detection_torch.ops import fused_detect as tfd
+from ood_in_object_detection_torch.ops import nms as tnms
+from ood_in_object_detection_torch.ops.boxes import box_iou
+
+# ops/__init__.py re-exports the function under the module's name
+jfd = importlib.import_module("ood_in_object_detection_tpu.ops.fused_detect")
+IOU = 0.7
+
+
+def _controlled_boxes(rng, b, k, ncls=3):
+    """Score-sorted, class-offset boxes, and a validity mask: jittered copies
+    of k/4 seed boxes, so that suppression chains are common."""
+    seed_c = rng.uniform(20, 600, (b, k // 4 + 1, 2))
+    seed_wh = rng.uniform(20, 120, (b, k // 4 + 1, 2))
+    pick = rng.integers(0, k // 4 + 1, (b, k))
+    c = np.take_along_axis(seed_c, pick[..., None], 1) + rng.normal(0, 4, (b, k, 2))
+    wh = np.take_along_axis(seed_wh, pick[..., None], 1) * rng.uniform(0.8, 1.2, (b, k, 2))
+    cls = rng.integers(0, ncls, (b, k))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1) + (cls * tnms.MAX_WH)[..., None]
+    valid = rng.uniform(size=(b, k)) > 0.1
+    return boxes.astype(np.float32), valid
+
+
+def _assert_iou_margin(boxes, margin=1e-4):
+    """No pair sits within `margin` of the threshold, so keep sets cannot
+    hinge on the last bit of a float."""
+    iou = box_iou(torch.from_numpy(boxes), torch.from_numpy(boxes)).numpy()
+    near = np.abs(iou - IOU) < margin
+    assert not near.any(), f"{near.sum()} pairs within {margin} of iou {IOU}"
+
+
+@pytest.mark.parametrize("k", [189, 512, 1024])
+def test_keep_matches_tiled_and_pallas(k, monkeypatch):
+    rng = np.random.default_rng(k)
+    boxes, valid = _controlled_boxes(rng, 1, k)
+    _assert_iou_margin(boxes[0])
+    got = tnms.greedy_keep(torch.from_numpy(boxes), torch.from_numpy(valid), IOU)[0].numpy()
+    tiled = np.asarray(jnms._greedy_keep_tiled(jnp.asarray(boxes[0]), jnp.asarray(valid[0]), IOU))
+    monkeypatch.setattr(jpnms.pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    pallas = np.asarray(jpnms.greedy_keep_pallas(jnp.asarray(boxes[0]), jnp.asarray(valid[0]), IOU))
+    np.testing.assert_array_equal(got, tiled)
+    np.testing.assert_array_equal(got, pallas)
+    # not vacuous: suppression happened and survivors remain
+    assert 0 < got.sum() < valid.sum()
+
+
+def test_keep_batched_matches_per_image():
+    rng = np.random.default_rng(5)
+    boxes, valid = _controlled_boxes(rng, 3, 200)
+    got = tnms.greedy_keep(torch.from_numpy(boxes), torch.from_numpy(valid), IOU).numpy()
+    for i in range(3):
+        ref = np.asarray(jnms._greedy_keep_tiled(jnp.asarray(boxes[i]), jnp.asarray(valid[i]), IOU))
+        np.testing.assert_array_equal(got[i], ref)
+
+
+def test_keep_rejects_oversized_k():
+    boxes = torch.zeros(1, tnms.MAX_PRE_NMS_K + 1, 4)
+    with pytest.raises(ValueError, match="MAX_PRE_NMS_K"):
+        tnms.greedy_keep(boxes, torch.ones(1, tnms.MAX_PRE_NMS_K + 1, dtype=torch.bool), IOU)
+
+
+def _raw_levels(seed, img=256, nc=3, b=2):
+    """NHWC raw head maps with varied DFL distributions and, per image,
+    distinct max-class logits (a permuted grid), so that no two candidate
+    confidences tie."""
+    rng = np.random.default_rng(seed)
+    hs = [img // s for s in (8, 16, 32)]
+    a = sum(h * h for h in hs)
+    top = np.stack([rng.permutation(np.linspace(-4.0, 6.0, a)) for _ in range(b)])
+    cls = np.minimum(rng.normal(-6.0, 0.5, (b, a, nc)), -4.5)
+    np.put_along_axis(cls, rng.integers(0, nc, (b, a, 1)), top[..., None], axis=2)
+    out, off = [], 0
+    for h in hs:
+        box = rng.normal(0, 2.5, (b, h, h, 64))
+        c = cls[:, off:off + h * h].reshape(b, h, h, nc)
+        out.append(np.concatenate([box, c], -1).astype(np.float32))
+        off += h * h
+    return out
+
+
+def _to_nchw(levels):
+    return [torch.from_numpy(np.ascontiguousarray(f.transpose(0, 3, 1, 2))) for f in levels]
+
+
+# seeds whose candidate boxes have no IoU within 1e-4 of the threshold
+@pytest.mark.parametrize("pre_nms_k,max_det,seed", [(512, 300, 4), (1024, 300, 12),
+                                                    (1024, 1024, 18)])
+def test_fused_detect_matches_jax(pre_nms_k, max_det, seed):
+    nc = 3
+    raw = _raw_levels(seed, nc=nc)
+    j = jfd.fused_detect([jnp.asarray(f) for f in raw], nc, 0.25, iou_thres=IOU,
+                         max_det=max_det, pre_nms_k=pre_nms_k)
+    t = tfd.fused_detect(_to_nchw(raw), nc, torch.tensor(0.25), iou_thres=IOU,
+                         max_det=max_det, pre_nms_k=pre_nms_k)
+    # fixture is non-degenerate: candidate confidences are well separated
+    cand = tfd.select_candidates(_to_nchw(raw), nc, 0.25, pre_nms_k)
+    for i in range(2):
+        conf = cand.conf[i][cand.conf[i] > 0.25]
+        assert (conf[:-1] - conf[1:]).min() > 1e-6
+        shifted, top_valid = tnms.nms_inputs(cand.boxes[i], cand.conf[i], cand.cls[i], 0.25)
+        _assert_iou_margin(shifted.numpy())
+        # not vacuous: NMS suppressed some candidates and kept others
+        kept = tnms.greedy_keep(shifted[None], top_valid[None], IOU).sum()
+        assert 0 < kept < top_valid.sum()
+    for field in ("valid", "cls", "anchor_idx"):
+        np.testing.assert_array_equal(getattr(t.det, field).numpy(),
+                                      np.asarray(getattr(j.det, field)), err_msg=field)
+    np.testing.assert_allclose(t.det.boxes.numpy(), np.asarray(j.det.boxes), rtol=1e-5, atol=2e-3)
+    np.testing.assert_allclose(t.det.conf.numpy(), np.asarray(j.det.conf), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(t.logits.numpy(), np.asarray(j.logits), rtol=1e-5, atol=1e-6)
+
+
+def test_suppress_and_select_matches_jax():
+    rng = np.random.default_rng(11)
+    k, max_det = 512, 300
+    boxes, _ = _controlled_boxes(rng, 2, k)
+    boxes -= (np.floor(boxes[..., :1] / tnms.MAX_WH) * tnms.MAX_WH)  # undo the class offset
+    conf = np.sort(rng.uniform(0, 1, (2, k)).astype(np.float32), axis=1)[:, ::-1].copy()
+    cls = rng.integers(0, 3, (2, k)).astype(np.int32)
+    idx = rng.permutation(4 * k)[: 2 * k].reshape(2, k).astype(np.int32)
+    t_det, t_sel = tnms.suppress_and_select(
+        torch.from_numpy(boxes), torch.from_numpy(conf), torch.from_numpy(cls).long(),
+        torch.from_numpy(idx).long(), 0.3, IOU, max_det)
+    for i in range(2):
+        j_det, j_sel = jnms.suppress_and_select(
+            jnp.asarray(boxes[i]), jnp.asarray(conf[i]), jnp.asarray(cls[i]), jnp.asarray(idx[i]),
+            jnp.float32(0.3), IOU, max_det, False)
+        for field in ("valid", "cls", "anchor_idx", "boxes", "conf"):
+            np.testing.assert_array_equal(getattr(t_det, field)[i].numpy(),
+                                          np.asarray(getattr(j_det, field)), err_msg=field)
+        np.testing.assert_array_equal(t_sel[i].numpy(), np.asarray(j_sel))
+
+
+def test_fused_matches_full_anchor_decode():
+    """The lazy path equals decode_detections + batched_nms (the oracle)."""
+    nc = 3
+    raw = _to_nchw(_raw_levels(12, nc=nc))
+    fused = tfd.fused_detect(raw, nc, 0.25, iou_thres=IOU, max_det=100, pre_nms_k=1024)
+    boxes, logits, _ = decode_detections(raw, nc)
+    full = tnms.batched_nms(boxes, logits, 0.25, iou_thres=IOU, max_det=100, pre_nms_k=1024)
+    np.testing.assert_array_equal(fused.det.anchor_idx.numpy(), full.anchor_idx.numpy())
+    np.testing.assert_array_equal(fused.det.valid.numpy(), full.valid.numpy())
+    np.testing.assert_allclose(fused.det.boxes.numpy(), full.boxes.numpy(), rtol=1e-5, atol=2e-3)
