@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's main path on one CUDA card.
+"""Smoke run of the PyTorch port's main paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,20 +9,31 @@ script exits non-zero without printing a result):
 1. env: torch / CUDA versions, the card's name and power limit (the raw
    ``nvidia-smi --query-gpu=name,power.limit`` line is printed on its own),
    TF32 switched off for matmuls and cuDNN convolutions.
-2. build: compile the three CUDA kernels from ``csrc/`` with nvcc.
-3. e2e: yolov8l at 640 px, nc=20, seeded random weights (BatchNorm
-   statistics calibrated on the run's images, the head's output convs
-   spread from a numpy seed), batches of 8 seeded uint8 images. Ground truth
-   comes from the model's own first predict pass. Extract -> fit -> evaluate
-   for MSP and Cosine_cl_stride; the kernels' launch counters are reset just
-   before and read just after, and every kernel must have launched.
-4. reference: one image through the card (kernels) and through the CPU
+2. build: compile the four CUDA kernels from ``csrc/`` with nvcc, one
+   process per source, all at once.
+3. e2e (the f32 path): yolov8l at 640 px, nc=20, seeded random weights
+   (BatchNorm statistics calibrated on the run's images, the head's output
+   convs spread from a numpy seed), batches of 8 seeded uint8 images. Ground
+   truth comes from the model's own first predict pass. Extract -> fit ->
+   evaluate for MSP and Cosine_cl_stride; the kernels' launch counters are
+   reset just before and read just after, and K1, K2 (f32), K3 and K4 must
+   have launched.
+4. e2e_bf16 (the --bf16 path): the same weights and batches in a bf16
+   detector (f32 parameters, bf16 compute and taps), extract -> fit ->
+   evaluate again with the counters reset; K4 and K2's bf16 route must have
+   launched. Prints the bf16 predict step and the share of detections and of
+   per-box decisions that differ from the f32 path, each under a ceiling.
+5. reference: one image through the card (kernels) and through the CPU
    (plain PyTorch versions) with the same weights; maps, detections and
    taps must agree.
-5. profile: device time of the predict step by kernel (torch.profiler).
-6. kernels: each kernel against its plain PyTorch version on the card, on
-   tensors captured from the main path (plus a controlled NMS case and a
-   K=5 centroid bank with empty groups), with times from CUDA events.
+6. profile, profile_bf16: device time of the predict step by kernel
+   (torch.profiler).
+7. kernels: each kernel against its plain PyTorch version on the card, on
+   tensors captured from the main paths (plus a controlled NMS case, a K=5
+   centroid bank with empty groups, yolov8n's stem widths and a corner
+   impulse for the stem), with times from CUDA events, the least time the
+   card could take (bound_ms) and one PyTorch call computing the same
+   function where there is one (library_ms).
 
 The last lines are the ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
@@ -45,10 +56,29 @@ NC = 20
 DEVICE = "cuda"
 CONF = 0.15  # the CLI's conf_thr_train / conf_thr_test defaults
 OWOD_KEYS = {"mAP", "U-AP", "U-F1", "U-PRE", "U-REC", "A-OSE", "WI-08"}
+# bf16 against f32 on random weights: the maps of a random yolov8n differ by
+# 29-52 % of their largest magnitude between the two precisions
+# (tests/bf16_margin_search.py --bn-scale 1.0),
+# so detections near the confidence threshold or an NMS tie, and boxes near
+# a fitted threshold, change sides. Ceilings on the share that differs:
+DET_FLIP_CEIL, DECISION_FLIP_CEIL = 0.5, 0.5
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12}
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}, default=float), flush=True)
+
+
+def unfused_stem_ms(det, images) -> float:
+    """The predict step with the stem's two Conv modules (cuDNN) in place of
+    K4, for comparison."""
+    det.model.folded_stem = False
+    try:
+        return cuda_ms(lambda: det.predict(images, conf_thres=CONF), reps=10)
+    finally:
+        det.model.folded_stem = True
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -65,6 +95,72 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def counters():
+    """(wrapper, attribute) of every kernel's launch counter."""
+    from ood_in_object_detection_torch.ood import distance as D
+    from ood_in_object_detection_torch.ops import nms as N
+    from ood_in_object_detection_torch.ops import roi_align as R
+    from ood_in_object_detection_torch.ops import stem as S
+
+    return {"greedy_keep": (N.greedy_keep, "launches"),
+            "roi_contract": (R.roi_contract, "launches"),
+            "roi_contract_bf16": (R.roi_contract, "launches_bf16"),
+            "min_group_distances": (D.min_group_distances, "launches"),
+            "fused_stem": (S.fused_stem, "launches")}
+
+
+def reset_counters() -> None:
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counters() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+
+
+def run_methods(det, ind, ood):
+    """Extract -> fit -> evaluate MSP and Cosine_cl_stride; -> (methods,
+    OWOD metric dicts), both checked."""
+    from ood_in_object_detection_torch.ood.methods import DistanceOODMethod, LogitsOODMethod
+    from ood_in_object_detection_torch.ood.pipeline import (evaluate_method,
+                                                            extract_ind_activations,
+                                                            fit_ind_pipeline)
+
+    known, names = list(range(NC)), [f"c{k}" for k in range(NC)] + ["unknown"]
+    results = {}
+    methods = {"MSP": LogitsOODMethod("MSP"),
+               "Cosine_cl_stride": DistanceOODMethod.from_name("Cosine_cl_stride")}
+    for name, m in methods.items():
+        acts = extract_ind_activations(det, ind, m, conf_thr_train=CONF)
+        fit_ind_pipeline(m, acts, tpr=0.95)
+        results[name] = evaluate_method(det, ood, m, known, names, conf_thr_test=CONF)
+    for name, m in methods.items():
+        flat = np.asarray([t for t in np.ravel(np.asarray(m.thresholds, dtype=object))
+                           if t is not None], np.float64)
+        if not (flat.size and np.isfinite(flat).all()):
+            raise AssertionError(f"{name}: no finite fitted thresholds ({m.thresholds})")
+        res = results[name]
+        if set(res) != OWOD_KEYS or not all(np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"{name}: bad OWOD metric dict {res}")
+    n_clusters = sum(isinstance(c, np.ndarray) and c.ndim == 2
+                     for row in methods["Cosine_cl_stride"].clusters for c in row)
+    if n_clusters == 0:
+        raise AssertionError("Cosine_cl_stride fitted no clusters")
+    return methods, results, n_clusters
 
 
 def phase_env(torch) -> dict:
@@ -109,13 +205,6 @@ def label_batches(det, images, unknown_every: int = 0, max_gt: int = 20):
 
 def phase_e2e(torch):
     from ood_in_object_detection_torch.engine import Detector
-    from ood_in_object_detection_torch.ood import distance as D
-    from ood_in_object_detection_torch.ood.methods import DistanceOODMethod, LogitsOODMethod
-    from ood_in_object_detection_torch.ood.pipeline import (evaluate_method,
-                                                            extract_ind_activations,
-                                                            fit_ind_pipeline)
-    from ood_in_object_detection_torch.ops import nms as N
-    from ood_in_object_detection_torch.ops import roi_align as R
     from ood_in_object_detection_torch.utils.weights import (calibrate_batchnorm,
                                                              load_jax_variables,
                                                              numpy_state_dict, spread_detect_head)
@@ -131,37 +220,16 @@ def phase_e2e(torch):
 
     ind = label_batches(det, ind_imgs)
     ood = label_batches(det, ood_imgs, unknown_every=3)
-    known, names = list(range(NC)), [f"c{k}" for k in range(NC)] + ["unknown"]
 
-    kernels = (N.greedy_keep, R.roi_contract, D.min_group_distances)
-    for k in kernels:
-        k.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
-    results = {}
-    methods = {"MSP": LogitsOODMethod("MSP"),
-               "Cosine_cl_stride": DistanceOODMethod.from_name("Cosine_cl_stride")}
-    for name, m in methods.items():
-        acts = extract_ind_activations(det, ind, m, conf_thr_train=CONF)
-        fit_ind_pipeline(m, acts, tpr=0.95)
-        results[name] = evaluate_method(det, ood, m, known, names, conf_thr_test=CONF)
+    methods, results, n_clusters = run_methods(det, ind, ood)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
-
-    for name, m in methods.items():
-        flat = np.asarray([t for t in np.ravel(np.asarray(m.thresholds, dtype=object))
-                           if t is not None], np.float64)
-        if not (flat.size and np.isfinite(flat).all()):
-            raise AssertionError(f"{name}: no finite fitted thresholds ({m.thresholds})")
-        res = results[name]
-        if set(res) != OWOD_KEYS or not all(np.isfinite(v) for v in res.values()):
-            raise AssertionError(f"{name}: bad OWOD metric dict {res}")
-    n_clusters = sum(isinstance(c, np.ndarray) and c.ndim == 2
-                     for row in methods["Cosine_cl_stride"].clusters for c in row)
-    if n_clusters == 0:
-        raise AssertionError("Cosine_cl_stride fitted no clusters")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    launches = read_counters()
+    path = ("greedy_keep", "roi_contract", "min_group_distances", "fused_stem")
+    if not all(launches[k] for k in path) or launches["roi_contract_bf16"]:
+        raise AssertionError(f"the f32 path did not launch its kernels: {launches}")
 
     out = det.predict(ood_imgs[0], conf_thres=CONF)
     for t in (out.det.boxes, out.det.conf, out.logits, out.roi_feats, out.exact_feats):
@@ -171,13 +239,83 @@ def phase_e2e(torch):
     x = torch.from_numpy(ood_imgs[0]).to(DEVICE).permute(0, 3, 1, 2).float() * (1.0 / 255.0)
     with torch.no_grad():
         forward_ms = cuda_ms(lambda: det.model(x.contiguous()), reps=10)
-    emit("e2e", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, seconds=seconds,
-         launches=launches, metrics=results, clusters=n_clusters,
+    emit("e2e", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, dtype="float32",
+         seconds=seconds, launches=launches, metrics=results, clusters=n_clusters,
          thresholds={k: m.thresholds for k, m in methods.items()},
          detections_per_image=float(out.det.valid.sum(1).float().mean()),
          predict_step_ms=step_ms, model_forward_ms=forward_ms,
-         images_per_s=BATCH * 1000.0 / step_ms)
-    return det, methods["Cosine_cl_stride"], ood_imgs[0], launches, step_ms
+         images_per_s=BATCH * 1000.0 / step_ms,
+         predict_step_ms_unfused_stem=unfused_stem_ms(det, ood_imgs[0]))
+    return det, methods, ind, ood, launches, step_ms
+
+
+def flip_shares(det32, det16, methods32, methods16, ood):
+    """Share of detections (image, anchor) found by one precision only, and
+    of per-box decisions that differ on the detections both found."""
+    from ood_in_object_detection_torch.ood.pipeline import _decisions_for_method
+
+    neck = det32.neck_channels()
+    det_diff = det_all = dec_diff = dec_all = 0
+    for batch in ood:
+        o32 = det32.predict(batch["images"], conf_thres=CONF)
+        o16 = det16.predict(batch["images"], conf_thres=CONF)
+        dec = {name: (_decisions_for_method(methods32[name], o32, neck).cpu().numpy(),
+                      _decisions_for_method(methods16[name], o16, neck).cpu().numpy())
+               for name in methods32}
+        for i in range(len(batch["images"])):
+            rows = []
+            for o in (o32, o16):
+                valid = o.det.valid[i].cpu().numpy()
+                rows.append({int(a): j for j, a in enumerate(o.anchor_idx[i].cpu().numpy())
+                             if valid[j]})
+            common = rows[0].keys() & rows[1].keys()
+            det_diff += len(rows[0].keys() ^ rows[1].keys())
+            det_all += len(rows[0].keys() | rows[1].keys())
+            for d32, d16 in dec.values():
+                dec_diff += sum(d32[i, rows[0][a]] != d16[i, rows[1][a]] for a in common)
+                dec_all += len(common)
+    return det_diff / max(det_all, 1), dec_diff / max(dec_all, 1), det_all, dec_all
+
+
+def phase_e2e_bf16(torch, det32, methods32, ind, ood):
+    """The --bf16 path: f32 parameters, bf16 compute and taps, the f32
+    path's weights and ground truth."""
+    from ood_in_object_detection_torch.engine import Detector
+
+    det = Detector.create(MODEL, nc=NC, img_size=IMG, device=DEVICE, dtype=torch.bfloat16)
+    det.model.load_state_dict(det32.model.state_dict())
+    reset_counters()
+    t0 = time.perf_counter()
+    methods, results, n_clusters = run_methods(det, ind, ood)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    if not (launches["fused_stem"] and launches["roi_contract_bf16"]) or launches["roi_contract"]:
+        raise AssertionError(f"the bf16 path did not launch K4 and K2's bf16 route: {launches}")
+
+    images = ood[0]["images"]
+    out = det.predict(images, conf_thres=CONF)
+    if not all(f.dtype == torch.bfloat16 for f in out.neck) or out.roi_feats.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 path's taps are not bf16")
+    for t in (out.det.boxes, out.det.conf, out.logits, out.roi_feats.float(), out.exact_feats.float()):
+        if not torch.isfinite(t).all():
+            raise AssertionError("non-finite bf16 predict output")
+    step_ms = cuda_ms(lambda: det.predict(images, conf_thres=CONF), reps=10)
+    det_share, dec_share, n_det, n_dec = flip_shares(det32, det, methods32, methods, ood)
+    emit("e2e_bf16", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, dtype="bfloat16",
+         seconds=seconds, launches=launches, metrics=results, clusters=n_clusters,
+         thresholds={k: m.thresholds for k, m in methods.items()},
+         detections_per_image=float(out.det.valid.sum(1).float().mean()),
+         predict_step_ms=step_ms, images_per_s=BATCH * 1000.0 / step_ms,
+         predict_step_ms_unfused_stem=unfused_stem_ms(det, images),
+         detections_differing_from_f32=det_share, detections_compared=n_det,
+         decisions_differing_from_f32=dec_share, decisions_compared=n_dec,
+         ceilings=dict(detections=DET_FLIP_CEIL, decisions=DECISION_FLIP_CEIL))
+    if det_share > DET_FLIP_CEIL or dec_share > DECISION_FLIP_CEIL:
+        raise AssertionError(f"bf16 differs from f32 on {det_share:.3f} of detections and "
+                             f"{dec_share:.3f} of decisions (ceilings {DET_FLIP_CEIL}, "
+                             f"{DECISION_FLIP_CEIL})")
+    return det, launches, step_ms
 
 
 def phase_reference(torch, det, images):
@@ -220,7 +358,7 @@ def phase_reference(torch, det, images):
         raise AssertionError("card and CPU disagree on the reference image")
 
 
-def phase_profile(torch, det, images, step_ms: float, steps: int = 3):
+def phase_profile(torch, det, images, step_ms: float, steps: int = 3, label="profile"):
     """Device time of the predict step by kernel (torch.profiler / CUPTI),
     and its share of the step's CUDA-event time."""
     from torch.autograd import DeviceType
@@ -236,18 +374,161 @@ def phase_profile(torch, det, images, step_ms: float, steps: int = 3):
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   reverse=True)
+    host = sorted(((e.self_cpu_time_total / steps, e.key, e.count / steps)
+                   for e in prof.key_averages() if e.self_cpu_time_total > 0), reverse=True)
     device_us = sum(r[0] for r in rows)
-    emit("profile", steps=steps, kernels_per_step=sum(r[2] for r in rows),
+    emit(label, steps=steps, kernels_per_step=sum(r[2] for r in rows),
          device_us_per_step=device_us if rows else "not measured",
          device_busy_share=device_us / (step_ms * 1000.0) if rows else "not measured",
-         top=[{"name": k[:90], "us_per_step": t, "calls_per_step": c} for t, k, c in rows[:15]])
+         top=[{"name": k[:90], "us_per_step": t, "calls_per_step": c} for t, k, c in rows[:15]],
+         host_top=[{"name": k[:60], "host_us_per_step": t, "calls_per_step": c}
+                   for t, k, c in host[:12]])
 
 
-def phase_kernels(torch, det, dist_method, images, launches):
+def support_ops(torch, wx, wy, c: int) -> float:
+    """Operations (2 per multiply-add) of the contraction over each row's
+    support rectangle: what K2 computes for these rows."""
+    def span(v):
+        idx = torch.arange(v.shape[-1], device=v.device)
+        lo = torch.where(v != 0, idx, v.shape[-1]).amin(-1)
+        hi = torch.where(v != 0, idx, -1).amax(-1)
+        return (hi - lo + 1).clamp(min=0).double()
+
+    return float((span(wx) * span(wy)).sum()) * 2.0 * c
+
+
+def roi_entry(torch, R, name, replaces, out, launches, tol):
+    """K2 on every level's map with the real RoI + exact-tap axis weights of
+    ``out``; against the plain version and torch.bmm of a materialised Q."""
+    level_args, err, off, moved, ops, qs = [], 0.0, 0, 0, 0.0, []
+    kind = "bf16" if out.neck[0].dtype == torch.bfloat16 else "f32"
+    for f in out.neck:
+        b, h, w, c = f.shape
+        wx, wy = R.level_axis_weights((h, w), out.det.boxes, out.anchor_idx, out.stride_level,
+                                      len(level_args), off, IMG, 0)
+        off += h * w
+        got, ref = R.roi_contract(f, wx, wy), R.roi_contract_plain(f, wx, wy)
+        e = float((got - ref).abs().max() / ref.abs().max())
+        err = max(err, float((got - ref).abs().max()))
+        emit("kernel_case", kernel=name, case=f"level_{h}x{w}", shape=list(f.shape),
+             dtype=kind, rows=wx.shape[1], rel_err=e)
+        if e > tol:
+            raise AssertionError(f"{name} level {h}x{w}: rel err {e} > {tol}")
+        level_args.append((f, wx, wy))
+        moved += nbytes(f, wx, wy, got)
+        ops += support_ops(torch, wx, wy, c)
+        q = (wy[..., :, None] * wx[..., None, :]).reshape(b, -1, h * w).to(f.dtype)
+        qs.append((q, f.reshape(b, h * w, c)))
+    return dict(name=name, route="cuda", source="ood_in_object_detection_torch/csrc/roi_contract.cu",
+                replaces=replaces, launches=launches, max_abs_err=err,
+                ms=cuda_ms(lambda: [R.roi_contract(*a) for a in level_args]),
+                plain_ms=cuda_ms(lambda: [R.roi_contract_plain(*a) for a in level_args]),
+                **bound(moved, ops, kind),
+                library_ms=cuda_ms(lambda: [torch.bmm(q, f) for q, f in qs]),
+                library="torch.bmm of the materialised Q (Q built beforehand), per level")
+
+
+def stem_case_params(rng, c1, c2):
+    """Seeded (w1, bn1, w2, bn2) at a stem's widths, on the card."""
+    import torch
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=DEVICE)
+
+    def bn(c):
+        return dict(scale=t(rng.uniform(0.5, 1.5, c)), bias=t(rng.normal(size=c) * 0.1),
+                    mean=t(rng.normal(size=c) * 0.1), var=t(rng.uniform(0.5, 2.0, c)))
+
+    return (t(rng.normal(size=(c1, 3, 3, 3)) * 0.5), bn(c1),
+            t(rng.normal(size=(c2, c1, 3, 3)) * 0.2), bn(c2))
+
+
+def stem_modules(torch, params):
+    from ood_in_object_detection_torch.models.layers import Conv
+
+    w1, bn1, w2, bn2 = params
+    convs = (Conv(3, w1.shape[0], 3, 2), Conv(w1.shape[0], w2.shape[0], 3, 2))
+    with torch.no_grad():
+        for m, w, p in zip(convs, (w1, w2), (bn1, bn2)):
+            m.to(DEVICE).eval()
+            m.conv.weight.copy_(w)
+            m.bn.weight.copy_(p["scale"])
+            m.bn.bias.copy_(p["bias"])
+            m.bn.running_mean.copy_(p["mean"])
+            m.bn.running_var.copy_(p["var"])
+    return convs
+
+
+def stem_entry(torch, S, det, images, launches):
+    """K4 at yolov8l's stem on the main path's images (its own layers 0 and
+    1), at yolov8n's widths and on a corner impulse, in f32 and bf16; times
+    at yolov8l's stem. bf16 tolerance: K4 follows pallas_stem's rounding
+    (BN folded into bf16 weights, the conv1 map rounded once), the plain
+    version phase_folded_stem's (conv outputs and BN's multiply-add
+    rounded): 2^-5 of the map's scale (tests/test_torch_kernels_cuda.py)."""
+    import torch.nn.functional as F
+
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -5}
+    x = torch.from_numpy(images).to(DEVICE).permute(0, 3, 1, 2).float().contiguous() * (1 / 255)
+    impulse = torch.zeros((1, 3, 32, 32), device=DEVICE)
+    impulse[0, 0, 0, 0] = 5.0
+    rng = np.random.default_rng(SEED + 4)
+    v8n = stem_case_params(rng, 16, 32)
+    cases = [("yolov8l", x, (det.model.model[0], det.model.model[1])),
+             ("yolov8n", x, stem_modules(torch, v8n)),
+             ("corner_impulse", impulse, stem_modules(torch, v8n))]
+    errs = {}
+    for label, inp, (m0, m1) in cases:
+        params = S.stem_conv_params(m0, m1)
+        for dt in (torch.float32, torch.bfloat16):
+            got = S.fused_stem(inp, m0, m1, dt).float()
+            ref = S.fused_stem_plain(inp, *params, dt).float()
+            e = float((got - ref).abs().max())
+            rel = e / float(ref.abs().max())
+            key = "f32" if dt == torch.float32 else "bf16"
+            errs[key] = max(errs.get(key, 0.0), e)
+            emit("kernel_case", kernel="fused_stem", case=label, dtype=key,
+                 shape=list(inp.shape), c1=params[0].shape[0], c2=params[2].shape[0], rel_err=rel)
+            if rel > tol[dt]:
+                raise AssertionError(f"fused_stem {label} {key}: rel err {rel} > {tol[dt]}")
+
+    m0, m1 = det.model.model[0], det.model.model[1]
+    w1, bn1, w2, bn2 = S.stem_conv_params(m0, m1)
+    b, _, h, w = x.shape
+    c1, c2 = w1.shape[0], w2.shape[0]
+    ops = 2.0 * b * ((h // 2) * (w // 2) * c1 * 27 + (h // 4) * (w // 4) * c2 * c1 * 9)
+    timed = {}
+    for dt, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        xi = x.to(dt)
+        inv1, b1 = S.bn_fold(bn1)
+        inv2, b2 = S.bn_fold(bn2)
+        lw1, lw2 = ((w * inv[:, None, None, None]).to(dt) for w, inv in ((w1, inv1), (w2, inv2)))
+        lb1, lb2 = b1.to(dt), b2.to(dt)
+
+        def library():
+            h1 = F.silu(F.conv2d(xi, lw1, lb1, stride=2, padding=1))
+            return F.silu(F.conv2d(h1, lw2, lb2, stride=2, padding=1))
+
+        moved = nbytes(xi) + (w1.numel() + w2.numel()) * xi.element_size() + \
+            b * c2 * (h // 4) * (w // 4) * xi.element_size()
+        timed[key] = dict(ms=cuda_ms(lambda: S.fused_stem(xi, m0, m1, dt)),
+                          plain_ms=cuda_ms(lambda: S.fused_stem_plain(xi, w1, bn1, w2, bn2, dt)),
+                          library_ms=cuda_ms(library), max_abs_err=errs[key],
+                          **bound(moved, ops, key))
+    return dict(name="fused_stem", route="cuda",
+                source="ood_in_object_detection_torch/csrc/fused_stem.cu",
+                replaces="ood_in_object_detection_tpu/ops/pallas/stem.py:172",
+                launches=launches, **timed["f32"], bf16=timed["bf16"],
+                library="two F.conv2d (BN folded into weight and bias) + F.silu, cuDNN, "
+                        "same dtype", shape=[b, 3, h, w], c1=c1, c2=c2)
+
+
+def phase_kernels(torch, det, det16, dist_method, images, launches, launches16):
     from ood_in_object_detection_torch.ood import distance as D
     from ood_in_object_detection_torch.ood.pipeline import distance_features
     from ood_in_object_detection_torch.ops import nms as N
     from ood_in_object_detection_torch.ops import roi_align as R
+    from ood_in_object_detection_torch.ops import stem as S
     from ood_in_object_detection_torch.ops.fused_detect import select_candidates
 
     x = torch.from_numpy(images).to(DEVICE).permute(0, 3, 1, 2).float() * (1.0 / 255.0)
@@ -257,6 +538,7 @@ def phase_kernels(torch, det, dist_method, images, launches):
     shifted, valid = N.nms_inputs(cand.boxes, cand.conf, cand.cls,
                                   torch.tensor(CONF, device=DEVICE))
     out = det.predict(images, conf_thres=CONF)
+    total = {k: launches[k] + launches16[k] for k in launches}
     entries = []
 
     # K1: the main path's (8, 1024) candidates, and controlled boxes at k=1024
@@ -279,34 +561,27 @@ def phase_kernels(torch, det, dist_method, images, launches):
              kept=int(got.sum()), valid=int(v.sum()), mismatches=int((got != ref).sum()))
     if mism:
         raise AssertionError(f"nms_keep: {mism} keep-mask entries differ from the plain version")
+    nv = valid.sum(1).double()
+    pairs = float((nv * (nv - 1) / 2).sum())  # IoU tests among valid boxes, ~13 flops each
     entries.append(dict(name="nms_keep", route="cuda",
                         source="ood_in_object_detection_torch/csrc/nms_keep.cu",
                         replaces="ood_in_object_detection_tpu/ops/pallas/nms.py:65",
-                        launches=launches["greedy_keep"], max_abs_err=err,
+                        launches=total["greedy_keep"], max_abs_err=err,
                         ms=cuda_ms(lambda: N.greedy_keep(shifted, valid, 0.7)),
-                        plain_ms=cuda_ms(lambda: N.greedy_keep_plain(shifted, valid, 0.7))))
+                        plain_ms=cuda_ms(lambda: N.greedy_keep_plain(shifted, valid, 0.7)),
+                        **bound(nbytes(shifted, valid, valid), 13.0 * pairs, "f32"),
+                        library_ms=None,
+                        library="none: no single PyTorch call computes a greedy-NMS keep mask"))
 
-    # K2: every level's map with the real RoI + exact-tap axis weights
-    level_args, err, off = [], 0.0, 0
-    for f in out.neck:
-        _, h, w, _ = f.shape
-        wx, wy = R.level_axis_weights((h, w), out.det.boxes, out.anchor_idx, out.stride_level,
-                                      len(level_args), off, IMG, 0)
-        off += h * w
-        got, ref = R.roi_contract(f, wx, wy), R.roi_contract_plain(f, wx, wy)
-        e = float((got - ref).abs().max() / ref.abs().max())
-        err = max(err, float((got - ref).abs().max()))
-        emit("kernel_case", kernel="roi_contract", case=f"level_{h}x{w}", shape=list(f.shape),
-             rows=wx.shape[1], rel_err=e)
-        if e > 1e-5:
-            raise AssertionError(f"roi_contract level {h}x{w}: rel err {e} > 1e-5")
-        level_args.append((f, wx, wy))
-    entries.append(dict(name="roi_contract", route="cuda",
-                        source="ood_in_object_detection_torch/csrc/roi_contract.cu",
-                        replaces="ood_in_object_detection_tpu/ops/pallas/roi.py:113",
-                        launches=launches["roi_contract"], max_abs_err=err,
-                        ms=cuda_ms(lambda: [R.roi_contract(*a) for a in level_args]),
-                        plain_ms=cuda_ms(lambda: [R.roi_contract_plain(*a) for a in level_args])))
+    # K2: every level's map with the real RoI + exact-tap axis weights, f32
+    # (the f32 path) and bf16 (the --bf16 path's maps and boxes)
+    entries.append(roi_entry(torch, R, "roi_contract",
+                             "ood_in_object_detection_tpu/ops/pallas/roi.py:113", out,
+                             total["roi_contract"], 1e-5))
+    out16 = det16.predict(images, conf_thres=CONF)
+    entries.append(roi_entry(torch, R, "roi_contract_bf16",
+                             "ood_in_object_detection_tpu/ops/pallas/roi.py:150", out16,
+                             total["roi_contract_bf16"], 1e-5))
 
     # K3: the real features against the fitted bank; a K=5 bank with empty
     # groups for cosine and l2. L2 near 0 is sqrt of a cancelled difference
@@ -335,13 +610,22 @@ def phase_kernels(torch, det, dist_method, images, launches):
              empty_groups=int((~km.any(1)).sum()), max_abs_err=e)
         if e > (1e-3 if metric == "l2" else 1e-5):
             raise AssertionError(f"min_group_distance {label}/{metric}: err {e}")
+    dmat = D.min_group_distances(feats, groups, kmask, "cosine")
     entries.append(dict(name="min_group_distance", route="cuda",
                         source="ood_in_object_detection_torch/csrc/min_group_distance.cu",
                         replaces="ood_in_object_detection_tpu/ops/pallas/distance.py:59",
-                        launches=launches["min_group_distances"], max_abs_err=err,
+                        launches=total["min_group_distances"], max_abs_err=err,
                         ms=cuda_ms(lambda: D.min_group_distances(feats, groups, kmask, "cosine")),
                         plain_ms=cuda_ms(lambda: D.min_group_distances_plain(
-                            feats, groups, kmask, "cosine"))))
+                            feats, groups, kmask, "cosine")),
+                        **bound(nbytes(feats, groups, kmask, dmat),
+                                2.0 * feats.shape[0] * dd * float(kmask.sum()), "f32"),
+                        library_ms=None,
+                        library="none: no single PyTorch call computes the masked minimum "
+                                "over each group's centroids"))
+
+    # K4: the stems of both paths
+    entries.append(stem_entry(torch, S, det, images, total["fused_stem"]))
     return entries
 
 
@@ -354,16 +638,23 @@ def main() -> int:
         return 2
     from ood_in_object_detection_torch.ops.kernels import _build
 
+    t_start = time.perf_counter()
     env = phase_env(torch)
     t0 = time.perf_counter()
     builds = _build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          kernels=[{k: b[k] for k in ("name", "seconds")} for b in builds],
          nvcc_flags=" ".join(_build.NVCC_FLAGS))
-    det, dist_method, images, launches, step_ms = phase_e2e(torch)
+    det, methods, ind, ood, launches, step_ms = phase_e2e(torch)
+    det16, launches16, step16_ms = phase_e2e_bf16(torch, det, methods, ind, ood)
+    images = ood[0]["images"]
     phase_reference(torch, det, images)
     phase_profile(torch, det, images, step_ms)
-    entries = phase_kernels(torch, det, dist_method, images, launches)
+    phase_profile(torch, det16, images, step16_ms, label="profile_bf16")
+    with torch.no_grad():
+        entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
+                                launches, launches16)
+    emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries, "card": env["nvidia_smi"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],
                                              "count": env["count"]}}), flush=True)

@@ -5,9 +5,11 @@ ood_evaluation.py Tap parser, :33-176).
 Flow (reference main(), ood_evaluation.py:662-846): build the detector and
 the InD/OoD datasets -> method factory -> InD configuration (activations ->
 clusters -> scores -> thresholds, cached under storage/) -> evaluate each
-OoD dataset -> CSV/XLSX rows. Datasets, constants and results writing reuse
-the JAX package's NumPy modules (they import no jax); the hyperparameters
-are the port's own (core/config.py). Flags whose features are not ported yet raise
+OoD dataset -> CSV/XLSX rows. Datasets, constants, results writing and the
+hyperparameters are the port's own copies of the JAX package's NumPy modules
+(data/, constants.py, eval/results_writer.py, core/config.py). ``--bf16``
+runs the model with f32 parameters and bf16 compute and taps, as the JAX
+CLI's flag does. Flags whose features are not ported yet raise
 NotImplementedError naming their ROADMAP.md item.
 
     python -m ood_in_object_detection_torch.cli.ood_eval --ood_method MSP \\
@@ -27,14 +29,13 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ood_in_object_detection_tpu import constants as C
-from ood_in_object_detection_tpu.data import DetectionDataset, PaddedBatcher
-from ood_in_object_detection_tpu.eval.results_writer import (
+from .. import constants as C
+from ..core.config import CUSTOM_HYP, hyperparams_to_dict
+from ..data import DetectionDataset, PaddedBatcher
+from ..engine import Detector
+from ..eval.results_writer import (
     append_results, fill_dataset_results, finalize_row, method_info_row,
 )
-
-from ..core.config import CUSTOM_HYP, hyperparams_to_dict
-from ..engine import Detector
 from ..ood.methods import DistanceOODMethod
 from ..ood.pipeline import (_leaf_methods, assign_fitted_state, evaluate_method,
                             extract_ind_activations)
@@ -48,7 +49,6 @@ UNPORTED_FLAGS = {
     "benchmark": "the BENCHMARK_MODE cache and benchmark sweeps",
     "data_parallel": "A12 (multi-GPU)",
     "export_bundle": "A11 (serving/export)",
-    "bf16": "--bf16 with kernel K2's bf16 path",
     "model_path": "A11 (checkpoints)",
     "dump_fusion_scores": "the fusion score dump",
     "compile_cache": "none: the eager port compiles nothing ahead of time",
@@ -109,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load_clusters", action="store_true")
     p.add_argument("--load_thresholds", action="store_true")
     p.add_argument("--img_size", type=int, default=640)
-    p.add_argument("--bf16", action="store_true", help="not ported")
+    p.add_argument("--bf16", action="store_true",
+                   help="run the model in bfloat16: f32 parameters, bf16 compute and taps")
     p.add_argument("--compute_metrics", action="store_true", default=True)
     p.add_argument("--data_parallel", action="store_true", help="not ported")
     p.add_argument("--export_bundle", default="", help="not ported")
@@ -155,7 +156,9 @@ def cache_paths(args, method) -> Dict[str, Path]:
 def load_detector(args, default_nc: int = 20) -> Detector:
     nc = OWOD_TASK_NC.get(args.owod_task_ind, 0) or default_nc
     name = resolve_model_name(args.model_version, args.model)
-    return Detector.create(name, nc=nc, img_size=args.img_size, device=torch_device(args.device))
+    dtype = torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
+    return Detector.create(name, nc=nc, img_size=args.img_size, device=torch_device(args.device),
+                           dtype=dtype)
 
 
 def load_dataset(args, path_or_name: str, split: str, owod_task: str) -> DetectionDataset:

@@ -19,13 +19,29 @@
 //
 // The products wy[h] * wx[w] are rounded to f32 before the multiply-add,
 // as in the plain version's Q, so only the summation order differs.
+//
+// bf16 maps (the --bf16 path) take the contract of ops/pallas/roi.py:
+// roi_matmul_level_pallas, store and expand variants (_q_dot_kernel,
+// _q_dot_kernel_expand) and of the JAX package's XLA branch
+// (ops/roi_align.py:307-311): Q = wy * wx is formed in f32 and rounded to
+// bf16, each term bf16(Q) * f is exact in f32, and the sum is f32. The
+// one-hot exact-tap rows stay exact (bf16(1 * 1) = 1).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 
 namespace {
 
 constexpr int kThreads = 128;
+
+// Q's entry as the map type rounds it, and a map value, both in f32
+__device__ __forceinline__ float q_as(float q, const float*) { return q; }
+__device__ __forceinline__ float q_as(float q, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(q));
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // first and last index of a non-zero entry of v[0..n), by warp ballots
 __device__ __forceinline__ void support(const float* v, int n, int lane, int* lo, int* hi) {
@@ -42,7 +58,8 @@ __device__ __forceinline__ void support(const float* v, int n, int lane, int* lo
   *hi = h;
 }
 
-__global__ void roi_contract_kernel(const float* __restrict__ fmap,
+template <typename T>
+__global__ void roi_contract_kernel(const T* __restrict__ fmap,
                                     const float* __restrict__ wx,
                                     const float* __restrict__ wy, int H, int W, int C,
                                     int n2, float* __restrict__ out) {
@@ -70,15 +87,15 @@ __global__ void roi_contract_kernel(const float* __restrict__ fmap,
   }
   __syncthreads();
   const int wlo = span[0], whi = span[1], hlo = span[2], hhi = span[3];
-  const float* fb = fmap + static_cast<size_t>(b) * H * W * C;
+  const T* fb = fmap + static_cast<size_t>(b) * H * W * C;
   float* o = out + row * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     float acc = 0.0f;
     for (int h = hlo; h <= hhi; ++h) {
       const float y = sy[h];
-      const float* fr = fb + static_cast<size_t>(h) * W * C + c;
+      const T* fr = fb + static_cast<size_t>(h) * W * C + c;
       for (int w = wlo; w <= whi; ++w) {
-        acc = fmaf(__fmul_rn(y, sx[w]), fr[static_cast<size_t>(w) * C], acc);
+        acc = fmaf(q_as(__fmul_rn(y, sx[w]), fr), to_f32(fr[static_cast<size_t>(w) * C]), acc);
       }
     }
     o[c] = acc;
@@ -87,16 +104,22 @@ __global__ void roi_contract_kernel(const float* __restrict__ fmap,
 
 }  // namespace
 
-extern "C" int roi_contract_launch(const float* fmap, const float* wx, const float* wy,
-                                   int batch, int H, int W, int C, int n2, float* out,
-                                   void* stream) {
+// fmap is float (bf16 == 0) or __nv_bfloat16 (bf16 != 0); wx, wy, out are f32
+extern "C" int roi_contract_launch(const void* fmap, const float* wx, const float* wy,
+                                   int batch, int H, int W, int C, int n2, int bf16,
+                                   float* out, void* stream) {
   if (batch <= 0 || n2 <= 0 || C <= 0) return 0;
   const size_t rows = static_cast<size_t>(batch) * n2;
   if (rows > static_cast<size_t>(INT_MAX)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(W + H) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  roi_contract_kernel<<<static_cast<unsigned>(rows), kThreads, smem, s>>>(
-      fmap, wx, wy, H, W, C, n2, out);
+  if (bf16) {
+    roi_contract_kernel<<<static_cast<unsigned>(rows), kThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(fmap), wx, wy, H, W, C, n2, out);
+  } else {
+    roi_contract_kernel<<<static_cast<unsigned>(rows), kThreads, smem, s>>>(
+        static_cast<const float*>(fmap), wx, wy, H, W, C, n2, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

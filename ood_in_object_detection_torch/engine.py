@@ -4,7 +4,10 @@ Port of ood_in_object_detection_tpu/engine.py. ``Detector.predict`` runs
 normalise -> YOLOv8 forward -> lazy DFL decode + top-k -> greedy NMS (kernel
 K1) -> RoI and exact-position taps (kernel K2) -> box clip, and returns a
 ``PredictOutput`` with the JAX package's field set and layouts: images come
-in as (B, H, W, 3), neck maps leave as (B, H/s, W/s, C).
+in as (B, H, W, 3), neck maps leave as (B, H/s, W/s, C) in the model's
+compute dtype (bf16 with ``dtype=torch.bfloat16``, the JAX package's
+``Detector.create(..., dtype=jnp.bfloat16)``); boxes, confidences and
+logits leave in f32.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ class PredictOutput(NamedTuple):
 
 @dataclasses.dataclass
 class Detector:
-    """Build with ``Detector.create('yolov8l', nc=20, device='cuda')``."""
+    """Build with ``Detector.create('yolov8l', nc=20)`` (on the card)."""
 
     model: torch.nn.Module
     img_size: int = 640
@@ -45,12 +48,20 @@ class Detector:
     roi_samples: int = 0
 
     @classmethod
-    def create(cls, name: str, nc: int = 80, img_size: int = 640, device="cpu",
-               generator: Optional[torch.Generator] = None) -> "Detector":
+    def create(cls, name: str, nc: int = 80, img_size: int = 640, device="cuda",
+               generator: Optional[torch.Generator] = None,
+               dtype: torch.dtype = torch.float32) -> "Detector":
         """A seeded random init from ``generator`` (seed 0 by default), made
-        on the CPU and moved to ``device``. Load trained or JAX-exported
-        weights with utils/weights.py:load_jax_variables."""
-        model = build_model(name, nc=nc)
+        on the CPU and moved to ``device``: the card unless the caller passes
+        ``device="cpu"`` (plain PyTorch versions of the kernels). ``dtype``
+        is the compute dtype (engine.py:90-91 of the JAX package); the
+        parameters stay f32. Load trained or JAX-exported weights with
+        utils/weights.py:load_jax_variables."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Detector.create: CUDA is not available; pass device=\"cpu\" "
+                               "to run the plain PyTorch versions of the kernels on the CPU")
+        model = build_model(name, nc=nc, dtype=dtype)
         init_weights(model, generator or torch.Generator().manual_seed(0))
         return cls(model=model.to(device).eval(), img_size=img_size)
 

@@ -14,7 +14,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
-from .layers import Conv
+from .layers import Conv, conv_in_dtype
 
 REG_MAX = 16
 STRIDES = (8, 16, 32)
@@ -57,7 +57,11 @@ class Detect(nn.Module):
                 cls[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        return [torch.cat([box(x), cls(x)], dim=1)
+        """Raw maps in the neck's dtype (head.py:48-89 with dtype)."""
+        def branch(seq, x):
+            return conv_in_dtype(seq[2], seq[1](seq[0](x)))
+
+        return [torch.cat([branch(box, x), branch(cls, x)], dim=1)
                 for x, box, cls in zip(feats, self.cv2, self.cv3)]
 
 

@@ -5,6 +5,17 @@ SPPF, max-pool, upsample); reference ultralytics nn/modules/{conv,block}.py.
 Module and attribute names follow ultralytics, so the state_dict that
 ``utils/weight_import.py:export_state_dict`` writes from the JAX variables
 loads here with ``strict=True`` and no renaming table.
+
+Compute dtype: every layer computes in the dtype of its input, and the model
+casts the image once (models/yolo.py). Parameters stay f32; a bf16 input is
+the JAX package's ``dtype=bf16`` (flax Conv and BatchNorm, layers.py:43-79):
+the conv runs on bf16 operands and returns bf16, inference BN computes in
+f32 from the bf16 conv output and rounds to bf16, SiLU rounds at each of
+its ops, as jax.nn.silu does (ops/stem.py:silu). The weights are cast at
+each call, as flax promotes its f32 params at each call: no cached copy can
+go stale when weights are loaded or calibrated after the model is built,
+and the cast is a small share of a conv's time. ``torch.autocast`` is not
+used, since it rounds at other points than flax.
 """
 
 from __future__ import annotations
@@ -13,8 +24,27 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.stem import silu
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
+
+
+def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` on ``x`` in x's dtype, its f32 weight (and bias) cast to it;
+    the bias is added after the conv's result is rounded, as flax does."""
+    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding,
+                 conv.dilation, conv.groups)
+    return y if conv.bias is None else y + conv.bias.to(x.dtype)[:, None, None]
+
+
+def bn_inference(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """flax BatchNorm(dtype=x.dtype) at inference: ``(x - mean) * (scale *
+    rsqrt(var + eps)) + bias`` in f32 on the running statistics, rounded to
+    x's dtype."""
+    mul = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    y = (x.float() - bn.running_mean[:, None, None]) * mul[:, None, None]
+    return (y + bn.bias[:, None, None]).to(x.dtype)
 
 
 class Conv(nn.Module):
@@ -28,8 +58,11 @@ class Conv(nn.Module):
         self.act = act
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
-        return F.silu(x) if self.act else x
+        if x.dtype == torch.float32:
+            x = self.bn(self.conv(x))
+        else:
+            x = bn_inference(self.bn, conv_in_dtype(self.conv, x))
+        return silu(x) if self.act else x
 
 
 class Bottleneck(nn.Module):

@@ -3,9 +3,14 @@ ood_in_object_detection_tpu/models/yolo.py, v8 family only).
 
 ``YOLODetector.forward`` returns ``(raw_levels, neck_feats)``: the three raw
 head maps (B, 4*16+nc, H, W) and the three PAN neck maps (B, C, H, W) that
-feed the head (layers 15, 18, 21), which are the OoD feature taps. The
-phase-folded stem of the JAX package is an exact rewrite of the first two
-convs and is not ported: plain convs compute the same thing.
+feed the head (layers 15, 18, 21), which are the OoD feature taps, in the
+model's compute ``dtype`` (f32 or bf16; parameters stay f32).
+
+At inference the first two k3/s2 Conv blocks run as one fused stem
+(ops/stem.py:fused_stem, kernel K4 on the card) on layers 0 and 1's own
+parameters, as the JAX model runs its phase-folded stem (yolo.py:398-431);
+``folded_stem=False``, and every training-mode forward, keep the two Conv
+modules.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..ops.stem import fused_stem
 from . import layers as L
 from .head import Detect
 
@@ -63,9 +69,14 @@ class YOLODetector(nn.Module):
     i, so parameters are named ``model.<i>.<...>`` as in ultralytics."""
 
     def __init__(self, spec: Sequence = SPEC_V8, nc: int = 80, depth: float = 1.0,
-                 width: float = 1.0, max_channels: int = 512):
+                 width: float = 1.0, max_channels: int = 512, folded_stem: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype must be float32 or bfloat16, got {dtype}")
         self.nc = nc
+        self.folded_stem = folded_stem
+        self.compute_dtype = dtype
         self.spec = [tuple(s) for s in spec]
         ch: List[int] = []  # output channels per layer
         layers = []
@@ -102,9 +113,35 @@ class YOLODetector(nn.Module):
     def _ch(c: int, width: float, max_channels: int) -> int:
         return make_divisible(min(c, max_channels) * width, 8)
 
+    def _can_fold_stem(self, x: torch.Tensor) -> bool:
+        """The JAX model's gate (yolo.py:398-410): inference only; layers 0
+        and 1 are Conv(., 3, 2); H and W multiples of 4; no later layer reads
+        layer 0 or 1."""
+        if self.training or not self.folded_stem or len(self.spec) < 3:
+            return False
+        if any(mod != "Conv" or list(args[1:]) != [3, 2] for _, _, mod, args in self.spec[:2]):
+            return False
+        if x.shape[2] % 4 or x.shape[3] % 4:
+            return False
+        for frm, _, _, _ in self.spec[2:]:
+            refs = frm if isinstance(frm, (list, tuple)) else [frm]
+            if any(r in (0, 1) for r in refs):
+                return False
+        return True
+
     def forward(self, x: torch.Tensor) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        if self.training and self.compute_dtype != torch.float32:
+            raise NotImplementedError("training runs in f32: bf16 training is not ported")
+        x = x.to(self.compute_dtype)  # after normalisation, as yolo.py:416
         ys: List[torch.Tensor] = []
-        for (frm, _, mod, _), m in zip(self.spec, self.model):
+        start = 0
+        if self._can_fold_stem(x):
+            x = fused_stem(x, self.model[0], self.model[1], self.compute_dtype)
+            ys.extend([x, x])  # ys[0] is never read (checked by _can_fold_stem)
+            start = 2
+        for li, ((frm, _, mod, _), m) in enumerate(zip(self.spec, self.model)):
+            if li < start:
+                continue
             if mod == "Detect":
                 neck = [ys[i] for i in frm]
                 return m(neck), neck
@@ -116,14 +153,17 @@ class YOLODetector(nn.Module):
         raise RuntimeError("spec did not terminate with a Detect layer")
 
 
-def build_model(name: str, nc: int = 80) -> YOLODetector:
-    """'yolov8n' .. 'yolov8x'; other families raise NotImplementedError."""
+def build_model(name: str, nc: int = 80, dtype: torch.dtype = torch.float32,
+                folded_stem: bool = True) -> YOLODetector:
+    """'yolov8n' .. 'yolov8x' computing in ``dtype``; other families raise
+    NotImplementedError."""
     if name.startswith("yolov8"):
         size = name[len("yolov8"):]
         if size not in SCALES["yolov8"]:
             raise ValueError(f"unknown size '{size}' for yolov8; have {list(SCALES['yolov8'])}")
         depth, width, max_ch = SCALES["yolov8"][size]
-        return YOLODetector(SPEC_V8, nc=nc, depth=depth, width=width, max_channels=max_ch)
+        return YOLODetector(SPEC_V8, nc=nc, depth=depth, width=width, max_channels=max_ch,
+                            folded_stem=folded_stem, dtype=dtype)
     if name.startswith(UNPORTED_FAMILIES):
         raise NotImplementedError(
             f"{name}: only yolov8 is ported so far (ROADMAP.md A8, the other YOLO families)")

@@ -256,7 +256,9 @@ class DistanceOODMethod:
 
     def group_inputs(self, feats: torch.Tensor):
         """The arguments :func:`min_group_distances` gets for these (N, D)
-        features: (feats, centroids (nc*S, Kmax, D), kmask (nc*S, Kmax))."""
+        features: (feats f32, centroids (nc*S, Kmax, D), kmask (nc*S, Kmax)).
+        bf16 features are normalised in bf16 and then upcast, where the JAX
+        package's distance promotes them against the f32 bank."""
         feats, bank = self._padded(feats)
         if self.metric == "cosine":
             # sklearn cosine normalises both sides; K3 assumes unit rows
@@ -264,13 +266,13 @@ class DistanceOODMethod:
         nc, s, kmax, dd = bank.centroids.shape
         groups = bank.centroids.reshape(nc * s, kmax, dd).contiguous()
         kmask = torch.arange(kmax, device=feats.device)[None, :] < bank.count.reshape(-1)[:, None]
-        return feats.contiguous(), groups, kmask
+        return feats.float().contiguous(), groups, kmask
 
     def distances(self, feats: torch.Tensor, cls: torch.Tensor,
                   stride_idx: torch.Tensor) -> torch.Tensor:
         """(N, D) transformed feats -> (N,) min centroid distance."""
         if self.metric not in ("cosine", "l2", "euclidean"):
-            feats, bank = self._padded(feats)
+            feats, bank = self._padded(feats.float())
             return min_distance_to_class_centroids(feats, cls, stride_idx, bank, self.metric)
         dmat = min_group_distances(*self.group_inputs(feats), self.metric)
         s = self.bank(feats.device).centroids.shape[1]

@@ -40,7 +40,13 @@ log = logging.getLogger(__name__)
 
 
 def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """A host array; bf16 taps become f32 (the same values), where the JAX
+    package keeps bf16 host arrays and converts them to f32 before use
+    (ood/methods.py:239, 339, 372)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def _check_unported(mesh=None, enhanced_unk_localization: bool = False) -> None:
@@ -202,7 +208,9 @@ def fit_ind_pipeline(method, activations: Dict[int, object], tpr: float = 0.95,
 
 def distance_features(method: DistanceOODMethod, out: PredictOutput, neck_ch):
     """(B*N, Cmax) L2-normalised box features with channels beyond each
-    box's stride width zeroed, plus the flat classes and levels."""
+    box's stride width zeroed, plus the flat classes and levels. The
+    features keep the taps' dtype, as in the JAX package (bf16 under
+    --bf16); the distance upcasts them (methods.py:distances)."""
     base = (out.exact_feats if method.which_internal_activations == "ftmaps_and_strides_exact_pos"
             else out.roi_feats)
     cmax = base.shape[-1]
@@ -264,7 +272,7 @@ def evaluate_method(detector: Detector, batches, method, known_classes: Sequence
         out = step(batch["images"])
         decisions = _np(_decisions_for_method(method, out, neck_ch))
         if visualize_dir and batch_idx < visualize_batches:
-            from ood_in_object_detection_tpu.utils.visualization import plot_batch_results
+            from ..utils.visualization import plot_batch_results
 
             plot_batch_results(batch, SimpleNamespace(det=Detections(*map(_np, out.det))),
                                decisions, list(class_names), visualize_dir,

@@ -6,6 +6,11 @@ taken per 16-bin chunk (max subtracted per chunk, reference DFL conv
 nn/modules/block.py:56-75); confidence is sigmoid(max logit) and the class
 its argmax. Only the pre-NMS candidates go through NMS, and each kept box's
 pre-sigmoid logits are gathered after NMS (the OoD tap).
+
+bf16 raw maps (--bf16) are upcast where the JAX package upcasts them: the
+box bins before the DFL softmax (fused_detect.py:65), the class logits
+before their max (:111; the argmax stays on the bf16 logits, as there) and
+the gathered logits (:139). Everything downstream of the maps is f32.
 """
 
 from __future__ import annotations

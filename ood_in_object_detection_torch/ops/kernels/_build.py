@@ -6,7 +6,7 @@ repository root. The hash covers the source and the flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. Nothing here runs
 at import time: the CPU tests import every module of the port without nvcc.
 
-Launch convention (shared by the three kernel wrappers): the C function
+Launch convention (shared by the kernel wrappers): the C function
 enqueues its kernels on the stream it is given, allocates nothing, and
 returns ``cudaGetLastError()``; :func:`check_launch` raises on a non-zero
 code.
@@ -34,8 +34,9 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (entry point, argtypes); every entry point returns a cudaError_t
 KERNELS = {
     "nms_keep": ("nms_keep_launch", [P, P, F, I, I, P, P, P]),
-    "roi_contract": ("roi_contract_launch", [P, P, P, I, I, I, I, I, P, P]),
+    "roi_contract": ("roi_contract_launch", [P, P, P, I, I, I, I, I, I, P, P]),
     "min_group_distance": ("min_group_distance_launch", [P, P, P, I, I, I, I, I, P, P]),
+    "fused_stem": ("fused_stem_launch", [P, P, P, P, P, I, I, I, I, I, I, P, P]),
 }
 
 _LIBS: dict = {}
@@ -105,9 +106,14 @@ def check_launch(name: str, code: int) -> None:
 
 
 def build_all() -> list:
-    """Build and load every kernel; -> one record per kernel compiled by this
-    call ({name, seconds, cmd}); kernels already built are not listed."""
+    """Build every kernel, one nvcc process per source, all started
+    together, then load them; -> one record per kernel compiled by this call
+    ({name, seconds, cmd}); kernels already built are not listed."""
+    from concurrent.futures import ThreadPoolExecutor
+
     start = len(_BUILDS)
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        list(pool.map(_compile, KERNELS))
     for name in KERNELS:
         library(name)
     return list(_BUILDS[start:])

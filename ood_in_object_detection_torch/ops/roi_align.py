@@ -78,21 +78,26 @@ def _axis_weights_adaptive(lo: torch.Tensor, span: torch.Tensor, size: int) -> t
 
 
 def roi_contract_plain(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch contraction: einsum of Q = outer(wy, wx) with the flat
-    map. (B, H, W, C), (B, N2, W), (B, N2, H) -> (B, N2, C) f32."""
+    """Plain PyTorch contraction: (B, H, W, C), (B, N2, W), (B, N2, H) ->
+    (B, N2, C) f32. Q = outer(wy, wx) is formed in f32 and rounded to the
+    map dtype; Q and the map are then contracted in f32, so a bf16 map gets
+    f32 sums of exact bf16 products (ops/pallas/roi.py's contract)."""
     b, h, w, c = fmap.shape
     n2 = wx.shape[1]
-    q = (wy[..., :, None] * wx[..., None, :]).reshape(b, n2, h * w).to(fmap.dtype)
-    return torch.einsum("bnk,bkc->bnc", q, fmap.reshape(b, h * w, c)).float()
+    q = (wy[..., :, None] * wx[..., None, :]).reshape(b, n2, h * w)
+    q = q.to(fmap.dtype).float()
+    return torch.einsum("bnk,bkc->bnc", q, fmap.reshape(b, h * w, c).float())
 
 
 def roi_contract(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
-    """``out[b,n,c] = sum_h sum_w wy[b,n,h] wx[b,n,w] fmap[b,h,w,c]``:
-    (B, H, W, C), (B, N2, W) f32, (B, N2, H) f32 -> (B, N2, C) f32.
+    """``out[b,n,c] = sum_h sum_w q(wy[b,n,h] wx[b,n,w]) fmap[b,h,w,c]`` with
+    ``q`` the rounding to the map dtype: (B, H, W, C) f32 or bf16,
+    (B, N2, W) f32, (B, N2, H) f32 -> (B, N2, C) f32.
 
-    Replaces ops/pallas/roi.py:roi_matmul_level_two_stage. CUDA tensors
-    launch kernel K2 (csrc/roi_contract.cu), which takes f32 maps only (the
-    bf16 path belongs to --bf16, ROADMAP.md); CPU tensors take
+    Replaces ops/pallas/roi.py:roi_matmul_level_two_stage (f32 maps) and
+    roi_matmul_level_pallas's store / expand variants (bf16 maps). CUDA
+    tensors launch kernel K2 (csrc/roi_contract.cu) and count the launch in
+    ``launches`` (f32) or ``launches_bf16``; CPU tensors take
     :func:`roi_contract_plain`."""
     if fmap.dim() != 4 or wx.dim() != 3 or wy.dim() != 3:
         raise ValueError("roi_contract: fmap (B,H,W,C), wx (B,N2,W), wy (B,N2,H)")
@@ -105,23 +110,26 @@ def roi_contract(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torc
     from .kernels import _build
 
     _build.require_cuda("roi_contract", fmap=fmap, wx=wx, wy=wy)
-    if fmap.dtype != torch.float32:
-        raise NotImplementedError(
-            f"roi_contract: kernel K2 takes f32 maps, got {fmap.dtype} "
-            "(bf16 comes with --bf16, ROADMAP.md)")
+    if fmap.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"roi_contract: kernel K2 takes f32 or bf16 maps, got {fmap.dtype}")
     if wx.dtype != torch.float32 or wy.dtype != torch.float32:
         raise TypeError("roi_contract: axis weights must be f32")
     n2 = wx.shape[1]
+    bf16 = fmap.dtype == torch.bfloat16
     out = torch.empty((b, n2, c), dtype=torch.float32, device=fmap.device)
     code = _build.launcher("roi_contract")(
-        fmap.data_ptr(), wx.data_ptr(), wy.data_ptr(), b, h, w, c, n2,
+        fmap.data_ptr(), wx.data_ptr(), wy.data_ptr(), b, h, w, c, n2, int(bf16),
         out.data_ptr(), _build.stream_handle(fmap.device))
-    roi_contract.launches += 1
+    if bf16:
+        roi_contract.launches_bf16 += 1
+    else:
+        roi_contract.launches += 1
     _build.check_launch("roi_contract", code)
     return out
 
 
 roi_contract.launches = 0
+roi_contract.launches_bf16 = 0
 
 
 def level_axis_weights(fmap_hw: Tuple[int, int], boxes_xyxy: torch.Tensor,
@@ -154,8 +162,9 @@ def roi_and_exact_batched(
     img_w: int,
     samples: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Level-routed 1x1 RoIAlign and exact-position tap -> two (B, N, Cmax),
-    zero-padded to the widest level."""
+    """Level-routed 1x1 RoIAlign and exact-position tap -> two (B, N, Cmax)
+    in the maps' dtype (the f32 contraction is rounded to it, as
+    ops/roi_align.py:311 does), zero-padded to the widest level."""
     cmax = max(f.shape[-1] for f in fmaps)
     n = boxes_xyxy.shape[1]
     roi_out = exact_out = None
@@ -164,7 +173,7 @@ def roi_and_exact_batched(
         _, h, w, c = f.shape
         wx, wy = level_axis_weights((h, w), boxes_xyxy, anchor_idx, level_idx, li, off,
                                     img_w, samples)
-        v = F.pad(roi_contract(f, wx, wy), (0, cmax - c))
+        v = F.pad(roi_contract(f, wx, wy).to(f.dtype), (0, cmax - c))
         v_roi, v_ex = v[:, :n], v[:, n:]
         in_level = (anchor_idx >= off) & (anchor_idx < off + h * w)
         roi_out = v_roi if roi_out is None else torch.where(

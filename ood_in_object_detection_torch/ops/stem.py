@@ -1,0 +1,194 @@
+"""The inference stem: the first two k3/s2 Conv+BN+SiLU blocks in one
+function, and kernel K4's wrapper.
+
+    fused_stem(x) == silu(bn2(conv2(silu(bn1(conv1(x))))))   (inference BN)
+
+Port of ood_in_object_detection_tpu/ops/pallas/stem.py:pallas_stem (the
+Pallas kernel) and models/folded_stem.py:phase_folded_stem (its XLA version,
+which the JAX model runs on every inference forward, models/yolo.py:398-431).
+
+- :func:`fused_stem_plain` is a plain PyTorch port of phase_folded_stem:
+  space-to-depth by 4, both convs refolded as k2/s1 convs over the phase
+  channels with top-left zero padding, inference BN as one multiply-add in
+  the compute dtype.
+- :func:`fused_stem` launches CUDA kernel K4 (``csrc/fused_stem.cu``) on CUDA
+  tensors and runs :func:`fused_stem_plain` on CPU tensors. K4 computes the
+  contract of pallas_stem: BN folded into the weights in f32
+  (:func:`bn_fold`, stem.py:56-59), the folded weights and the image rounded
+  to the compute dtype, f32 accumulation, f32 bias and SiLU, the conv1
+  intermediate rounded to the compute dtype (stem.py:151). In f32 the two
+  agree to summation order; in bf16 they round at different points.
+
+Layouts are the port's: (B, C, H, W) in, (B, C2, H/4, W/4) out, conv weights
+OIHW. BN parameters travel as dicts with the JAX package's keys
+(scale / bias / mean / var).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+BN_EPS = 1e-3
+# the widths K4 takes: every YOLOv8 scale's (C1 16 .. 80, C2 32 .. 160),
+# multiples of 8
+K4_C1_RANGE = (16, 80)
+K4_C2_RANGE = (32, 160)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU rounded where jax.nn.silu rounds. Its jaxpr is ``x * (1 / (1 +
+    exp(-x)))``, and in bf16 every one of those four ops rounds to bf16; f32
+    takes F.silu."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def bn_fold(bn: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference BN as ``x * inv + shift``, in f32 (stem.py:56-59)."""
+    inv = bn["scale"].float() * torch.rsqrt(bn["var"].float() + BN_EPS)
+    return inv, bn["bias"].float() - bn["mean"].float() * inv
+
+
+def stem_conv_params(conv0, conv1):
+    """(w1, bn1, w2, bn2) of two models/layers.Conv modules."""
+    out = []
+    for m in (conv0, conv1):
+        c = m.conv
+        if c.kernel_size != (3, 3) or c.stride != (2, 2) or c.padding != (1, 1) or c.groups != 1:
+            raise ValueError("fused_stem: both stem convs must be k3/s2/p1, ungrouped")
+        out += [c.weight, dict(scale=m.bn.weight, bias=m.bn.bias, mean=m.bn.running_mean,
+                               var=m.bn.running_var)]
+    return tuple(out)
+
+
+def space_to_depth4(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, 16C, H/4, W/4), channels ordered (qy, qx, c)."""
+    b, c, h, w = x.shape
+    z = x.reshape(b, c, h // 4, 4, w // 4, 4).permute(0, 3, 5, 1, 2, 4)
+    return z.reshape(b, 16 * c, h // 4, w // 4)
+
+
+def _phase_tap(p: int, d: int) -> Tuple[int, int]:
+    """Input phase q and k2 tap k of the k3/s2 tap ``d`` of output phase ``p``
+    (folded_stem.py:16-21): the image row 2p + d - 1 of a 4-row group."""
+    t = 2 * p + d - 1
+    return t % 4, 1 + (t // 4 if t >= 0 else -1)
+
+
+def fold_w1(w1: torch.Tensor) -> torch.Tensor:
+    """(O, C, 3, 3) k3/s2 kernel -> (4O, 16C, 2, 2) k2/s1 kernel over the
+    space-to-depth image; out-channels ordered (py, px, o), in (qy, qx, c)."""
+    o, c = w1.shape[:2]
+    out = w1.new_zeros((4 * o, 16 * c, 2, 2))
+    for py in range(2):
+        for dy in range(3):
+            qy, ky = _phase_tap(py, dy)
+            for px in range(2):
+                for dx in range(3):
+                    qx, kx = _phase_tap(px, dx)
+                    ci, oi = (qy * 4 + qx) * c, (py * 2 + px) * o
+                    out[oi:oi + o, ci:ci + c, ky, kx] = w1[:, :, dy, dx]
+    return out
+
+
+def fold_w2(w2: torch.Tensor) -> torch.Tensor:
+    """(C2, C1, 3, 3) k3/s2 kernel -> (C2, 4C1, 2, 2) k2/s1 kernel over the
+    phase tensor; in-channels ordered (py, px, c1)."""
+    c2, c1 = w2.shape[:2]
+    out = w2.new_zeros((c2, 4 * c1, 2, 2))
+    dy_of = {(0, 1): 0, (1, 0): 1, (1, 1): 2}  # (k, phase) -> k3 tap
+    for (ky, py), dy in dy_of.items():
+        for (kx, px), dx in dy_of.items():
+            ci = (py * 2 + px) * c1
+            out[:, ci:ci + c1, ky, kx] = w2[:, :, dy, dx]
+    return out
+
+
+def _conv_k2_s1_tl(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """k2/s1 conv with top/left zero padding (window rows y-1..y)."""
+    return F.conv2d(F.pad(x, (1, 0, 1, 0)), k)
+
+
+def _bn_inference(x: torch.Tensor, bn: Dict[str, torch.Tensor], tile: int = 1) -> torch.Tensor:
+    """One multiply-add in x's dtype; the (C,) coefficients in f32
+    (folded_stem.py:80-85)."""
+    inv, shift = bn_fold(bn)
+    inv, shift = inv.repeat(tile), shift.repeat(tile)
+    return x * inv.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
+def fused_stem_plain(x: torch.Tensor, w1: torch.Tensor, bn1: Dict[str, torch.Tensor],
+                     w2: torch.Tensor, bn2: Dict[str, torch.Tensor],
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch phase-folded stem (port of phase_folded_stem):
+    (B, C, H, W) -> (B, C2, H/4, W/4) in ``dtype``."""
+    z = space_to_depth4(x.to(dtype))
+    h = _conv_k2_s1_tl(z, fold_w1(w1.float()).to(dtype))
+    h = silu(_bn_inference(h, bn1, tile=4))  # phase channels (py, px, o)
+    y = _conv_k2_s1_tl(h, fold_w2(w2.float()).to(dtype))
+    return silu(_bn_inference(y, bn2))
+
+
+def k4_weights(w1, bn1, w2, bn2, dtype: torch.dtype):
+    """K4's operands, BN folded in f32 and the weights rounded to ``dtype``
+    (held as f32): w1 (27, C1), b1 (C1,), w2 (C1, 9, C2), b2 (C2,)."""
+    inv1, b1 = bn_fold(bn1)
+    inv2, b2 = bn_fold(bn2)
+    c2, c1 = w2.shape[:2]
+    w1f = (w1.float() * inv1[:, None, None, None]).to(dtype).float().reshape(c1, 27)
+    w2f = (w2.float() * inv2[:, None, None, None]).to(dtype).float().reshape(c2, c1, 9)
+    return (w1f.t().contiguous(), b1.contiguous(), w2f.permute(1, 2, 0).contiguous(),
+            b2.contiguous())
+
+
+def check_k4_shapes(x_shape, c1: int, c2: int) -> None:
+    """Raise on a shape K4 does not take."""
+    b, cin, h, w = x_shape
+    lo, hi = K4_C1_RANGE
+    if cin != 3 or h % 4 or w % 4:
+        raise ValueError(f"fused_stem: K4 takes (B, 3, H, W) images with H, W multiples "
+                         f"of 4, got {tuple(x_shape)}")
+    lo2, hi2 = K4_C2_RANGE
+    if not (lo <= c1 <= hi and lo2 <= c2 <= hi2 and c1 % 8 == 0 and c2 % 8 == 0):
+        raise ValueError(f"fused_stem: K4 takes C1 in [{lo}, {hi}] and C2 in [{lo2}, {hi2}], "
+                         f"multiples of 8, got C1={c1}, C2={c2}")
+
+
+def fused_stem(x: torch.Tensor, conv0, conv1, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Both stem Conv blocks (models/layers.Conv ``conv0``, ``conv1``) at
+    inference: (B, C, H, W) -> (B, C2, H/4, W/4) in ``dtype``, H and W
+    multiples of 4.
+
+    Replaces ops/pallas/stem.py:pallas_stem. CUDA tensors launch kernel K4
+    (csrc/fused_stem.cu) in f32 or bf16 and raise on shapes it does not take;
+    CPU tensors take :func:`fused_stem_plain`."""
+    w1, bn1, w2, bn2 = stem_conv_params(conv0, conv1)
+    if x.dim() != 4 or x.shape[2] % 4 or x.shape[3] % 4:
+        raise ValueError(f"fused_stem: (B, C, H, W) with H, W multiples of 4, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return fused_stem_plain(x, w1, bn1, w2, bn2, dtype)
+    from .kernels import _build
+
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_stem: K4 computes in f32 or bf16, not {dtype}")
+    c2, c1 = w2.shape[:2]
+    check_k4_shapes(x.shape, c1, c2)
+    x = x.to(dtype).contiguous()
+    w1k, b1, w2k, b2 = k4_weights(w1, bn1, w2, bn2, dtype)
+    _build.require_cuda("fused_stem", x=x, w1=w1k, b1=b1, w2=w2k, b2=b2)
+    b, _, h, w = x.shape
+    out = torch.empty((b, c2, h // 4, w // 4), dtype=dtype, device=x.device)
+    code = _build.launcher("fused_stem")(
+        x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(), b2.data_ptr(),
+        b, h, w, c1, c2, int(dtype == torch.bfloat16), out.data_ptr(),
+        _build.stream_handle(x.device))
+    fused_stem.launches += 1
+    _build.check_launch("fused_stem", code)
+    return out
+
+
+fused_stem.launches = 0

@@ -1,5 +1,5 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
-card. Skipped where ``torch.cuda.is_available()`` is false (kernels build
+card (K4, the fused stem, also against its own contract, k4_contract). Skipped where ``torch.cuda.is_available()`` is false (kernels build
 with nvcc and run only on a CUDA device). On a machine with the card and no
 JAX (tests/conftest.py imports jax, hence --noconftest):
 
@@ -10,9 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from ood_in_object_detection_torch.ood import distance as D
 from ood_in_object_detection_torch.ops import nms as N
 from ood_in_object_detection_torch.ops import roi_align as R
+from ood_in_object_detection_torch.ops import stem as S
 
 pytestmark = pytest.mark.cuda
 
@@ -21,7 +24,9 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a")
+    # the plain versions' f32 matmuls and convolutions in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -61,11 +66,136 @@ def test_roi_contract_kernel_matches_plain(dev, b, h, w, c, n2):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
 
 
-def test_roi_contract_kernel_rejects_bf16(dev):
-    f = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16, device=dev)
-    w = torch.zeros(1, 2, 4, device=dev)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        R.roi_contract(f, w, w)
+@pytest.mark.parametrize("b,h,w,c,n2", [(8, 80, 80, 256, 600), (8, 20, 20, 512, 600),
+                                        (2, 7, 9, 33, 5)])
+def test_roi_contract_kernel_bf16_matches_plain(dev, b, h, w, c, n2):
+    """bf16 maps: Q rounded to bf16, f32 sums; RoI hats and one-hot rows."""
+    rng = np.random.default_rng(n2 + w)
+    f = torch.tensor(rng.normal(size=(b, h, w, c)), dtype=torch.bfloat16, device=dev)
+    wx = np.zeros((b, n2, w), np.float32)
+    wy = np.zeros((b, n2, h), np.float32)
+    for i in range(b):
+        for n in range(n2):
+            if n % 2:
+                wx[i, n, rng.integers(0, w)] = wy[i, n, rng.integers(0, h)] = 1.0
+                continue
+            x0, y0 = rng.integers(0, w), rng.integers(0, h)
+            x1, y1 = min(w, x0 + rng.integers(1, 20)), min(h, y0 + rng.integers(1, 20))
+            wx[i, n, x0:x1] = rng.uniform(size=x1 - x0) / (x1 - x0)
+            wy[i, n, y0:y1] = rng.uniform(size=y1 - y0) / (y1 - y0)
+    wx, wy = torch.tensor(wx, device=dev), torch.tensor(wy, device=dev)
+    before = R.roi_contract.launches_bf16
+    got = R.roi_contract(f, wx, wy)
+    assert R.roi_contract.launches_bf16 == before + 1
+    torch.cuda.synchronize()
+    ref = R.roi_contract_plain(f, wx, wy)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    # the one-hot rows are the map's bf16 values, exactly
+    assert torch.equal(got[:, 1::2], ref[:, 1::2])
+
+
+def k4_contract(x, w1, bn1, w2, bn2, dtype):
+    """K4's arithmetic (pallas_stem's contract) in plain PyTorch: BN folded
+    into the weights in f32 and rounded to ``dtype``, f32 convs, f32 bias
+    and SiLU, the conv1 map rounded to ``dtype``. NCHW, OIHW."""
+    inv1, b1 = S.bn_fold(bn1)
+    inv2, b2 = S.bn_fold(bn2)
+    w1f = (w1.float() * inv1[:, None, None, None]).to(dtype).float()
+    w2f = (w2.float() * inv2[:, None, None, None]).to(dtype).float()
+    h = F.conv2d(x.to(dtype).float(), w1f, stride=2, padding=1) + b1[:, None, None]
+    h = F.silu(h).to(dtype).float()
+    return F.silu(F.conv2d(h, w2f, stride=2, padding=1) + b2[:, None, None]).to(dtype)
+
+
+def stem_params(seed, c1, c2, device):
+    """(w1, bn1, w2, bn2) OIHW, drawn as tests/test_pallas_stem.py draws them."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    def bn(c):
+        return dict(scale=t(rng.uniform(0.5, 1.5, c)), bias=t(rng.normal(size=c) * 0.1),
+                    mean=t(rng.normal(size=c) * 0.1), var=t(rng.uniform(0.5, 2.0, c)))
+
+    return (t(rng.normal(size=(c1, 3, 3, 3)) * 0.5), bn(c1),
+            t(rng.normal(size=(c2, c1, 3, 3)) * 0.2), bn(c2))
+
+
+def stem_convs(params):
+    """Two models/layers.Conv modules holding ``params``, in eval mode."""
+    from ood_in_object_detection_torch.models.layers import Conv
+
+    w1, bn1, w2, bn2 = params
+    convs = (Conv(w1.shape[1], w1.shape[0], 3, 2), Conv(w1.shape[0], w2.shape[0], 3, 2))
+    with torch.no_grad():
+        for m, w, bn in zip(convs, (w1, w2), (bn1, bn2)):
+            m.to(w.device).eval()
+            m.conv.weight.copy_(w)
+            m.bn.weight.copy_(bn["scale"])
+            m.bn.bias.copy_(bn["bias"])
+            m.bn.running_mean.copy_(bn["mean"])
+            m.bn.running_var.copy_(bn["var"])
+    return convs
+
+
+# bf16: K4 and the plain (phase-folded) version round at other points (the
+# folded conv outputs and BN's multiply-add there, the conv1 map here): a few
+# bf16 ulps apart on an element, 2^-5 of the map's scale at most. Against its
+# own contract K4 differs by sum order only, bar a conv1 value that rounds to
+# the other side: 2^-7 of the scale.
+STEM_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -5, 2.0 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hw", [(96, 96), (640, 640), (672, 640)], ids=["96", "640", "672x640"])
+@pytest.mark.parametrize("c1", [16, 32, 48, 64, 80])
+def test_fused_stem_kernel_matches_plain(dev, c1, hw, dtype):
+    """Every YOLOv8 stem width (C1 = 16 .. 80, C2 = 2 C1), f32 and bf16."""
+    params = stem_params(c1 + hw[0], c1, 2 * c1, dev)
+    x = torch.tensor(np.random.default_rng(hw[1]).uniform(0, 1, (2, 3, *hw)),
+                     dtype=torch.float32, device=dev)
+    before = S.fused_stem.launches
+    got = S.fused_stem(x, *stem_convs(params), dtype)
+    assert S.fused_stem.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (2, 2 * c1, hw[0] // 4, hw[1] // 4)
+    ref = S.fused_stem_plain(x, *params, dtype).float()
+    scale = float(ref.abs().max())
+    tol_plain, tol_contract = STEM_TOL[dtype]
+    assert float((got.float() - ref).abs().max()) <= tol_plain * scale
+    own = k4_contract(x, *params, dtype).float()
+    assert float((got.float() - own).abs().max()) <= tol_contract * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_stem_kernel_corner_impulse(dev, dtype):
+    """One bright pixel at the image corner: the zero padding of both convs
+    (the mirror of tests/test_pallas_stem.py:47-57)."""
+    params = stem_params(5, 16, 32, dev)
+    x = torch.zeros((1, 3, 32, 32), device=dev)
+    x[0, 0, 0, 0] = 5.0
+    got = S.fused_stem(x, *stem_convs(params), dtype).float()
+    torch.cuda.synchronize()
+    ref = S.fused_stem_plain(x, *params, dtype).float()
+    tol_plain, tol_contract = STEM_TOL[dtype]
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol_plain * scale
+    assert float((got - k4_contract(x, *params, dtype).float()).abs().max()) <= tol_contract * scale
+
+
+@pytest.mark.parametrize("c1,c2,shape", [(96, 192, (1, 3, 64, 64)), (64, 36, (1, 3, 64, 64)),
+                                         (16, 32, (1, 4, 64, 64))])
+def test_fused_stem_kernel_refuses_shapes(dev, c1, c2, shape):
+    params = stem_params(1, c1, c2, dev)
+    w1, bn1, w2, bn2 = params
+    if shape[1] != 3:
+        w1 = torch.zeros((c1, shape[1], 3, 3), device=dev)
+    convs = stem_convs((w1, bn1, w2, bn2))
+    before = S.fused_stem.launches
+    with pytest.raises(ValueError, match="K4 takes"):
+        S.fused_stem(torch.zeros(shape, device=dev), *convs, torch.float32)
+    assert S.fused_stem.launches == before
 
 
 @pytest.mark.parametrize("metric", ["cosine", "l2"])

@@ -26,16 +26,22 @@ from ood_in_object_detection_torch.utils.weights import (calibrate_batchnorm, lo
 IMG = 96
 
 
-def shared_weights(name: str, nc: int, seed: int = 0, calib=None, spread: float = 4.0):
+def shared_weights(name: str, nc: int, seed: int = 0, calib=None, spread: float = 4.0,
+                   bn_scale: float = 1.0):
     """-> (jax model, jax variables, torch model) holding the same weights:
     the JAX init exported and loaded into torch, BN-calibrated on ``calib``
     (NCHW floats; seeded uniform noise by default) and head-spread there
     (``spread``: utils/weights.py spread_detect_head's scale), then imported
-    back into the JAX variables."""
+    back into the JAX variables. ``bn_scale`` sets every BatchNorm's scale
+    before the calibration, so that each Conv block leaves activations of
+    that standard deviation."""
     jm = jax_build_model(name, nc=nc)
     variables = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, IMG, IMG, 3)), train=False)
     tm = build_model(name, nc=nc)
     load_jax_variables(tm, export_state_dict(variables, detect_layer_idx=22))
+    for m in tm.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            torch.nn.init.constant_(m.weight, bn_scale)
     if calib is None:
         calib = torch.from_numpy(
             np.random.default_rng(seed).uniform(0, 1, (4, 3, IMG, IMG)).astype(np.float32))
@@ -80,3 +86,18 @@ def test_state_dict_keys_are_ultralytics_names(models):
 def test_other_families_raise():
     with pytest.raises(NotImplementedError, match="A8"):
         build_model("yolo11n")
+
+
+def test_detector_create_defaults_to_the_card():
+    """Detector.create builds on the card unless asked for the CPU; without
+    CUDA it raises and names device="cpu"."""
+    from ood_in_object_detection_torch.engine import Detector
+
+    if torch.cuda.is_available():
+        assert Detector.create("yolov8n", nc=2, img_size=96).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            Detector.create("yolov8n", nc=2, img_size=96)
+    det = Detector.create("yolov8n", nc=2, img_size=96, device="cpu", dtype=torch.bfloat16)
+    assert det.device.type == "cpu" and det.model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in det.model.parameters())

@@ -195,7 +195,7 @@ def test_extract_fit_evaluate_match_jax(fx, name):
 
 
 def test_cli_runs_on_fixture(fx, tmp_path, monkeypatch):
-    from ood_in_object_detection_tpu import constants as C
+    from ood_in_object_detection_torch import constants as C
     from ood_in_object_detection_torch.cli import ood_eval
 
     root = fx["root"]
@@ -216,7 +216,7 @@ def test_cli_runs_on_fixture(fx, tmp_path, monkeypatch):
     assert len(list((tmp_path / "results").glob("*torchsmoke.csv"))) == 1
 
 
-@pytest.mark.parametrize("flag", [["--enhanced_unk_localization"], ["--bf16"],
+@pytest.mark.parametrize("flag", [["--enhanced_unk_localization"],
                                   ["--data_parallel"], ["--cluster_method", "KMeans_3"]])
 def test_cli_unported_flags_raise(flag):
     from ood_in_object_detection_torch.cli import ood_eval

@@ -1,19 +1,28 @@
 """The NumPy modules the port re-homes from the JAX package (core/config.py,
-eval/owod_protocol.py, ood/thresholds.py, ood/matching.py) give the JAX
-package's results on the same inputs: equal, not within a tolerance, since
-the code is the same."""
+eval/owod_protocol.py, ood/thresholds.py, ood/matching.py, constants.py,
+data/{dataset,letterbox}.py, eval/results_writer.py,
+utils/visualization.py) give the JAX package's results on the same inputs:
+equal, not within a tolerance, since the code is the same."""
 
 import numpy as np
 import pytest
 
+from ood_in_object_detection_tpu import constants as jconstants
+from ood_in_object_detection_tpu import data as jdata
 from ood_in_object_detection_tpu.core import config as jconfig
 from ood_in_object_detection_tpu.eval import owod_protocol as jowod
+from ood_in_object_detection_tpu.eval import results_writer as jwriter
 from ood_in_object_detection_tpu.ood import matching as jmatching
 from ood_in_object_detection_tpu.ood import thresholds as jthr
+from ood_in_object_detection_tpu.utils import visualization as jvis
+from ood_in_object_detection_torch import constants as tconstants
+from ood_in_object_detection_torch import data as tdata
 from ood_in_object_detection_torch.core import config as tconfig
 from ood_in_object_detection_torch.eval import owod_protocol as towod
+from ood_in_object_detection_torch.eval import results_writer as twriter
 from ood_in_object_detection_torch.ood import matching as tmatching
 from ood_in_object_detection_torch.ood import thresholds as tthr
+from ood_in_object_detection_torch.utils import visualization as tvis
 
 
 def test_config_defaults_match_jax():
@@ -82,3 +91,100 @@ def test_matching_matches_jax(n, m):
     assert got == jmatching.match_predictions_to_targets(pb, pc, tb, tc, 0.5)
     if n:
         assert got, "no prediction matched: the case checks nothing"
+
+
+def test_constants_match_jax():
+    names = [n for n in dir(jconstants) if n.isupper()]
+    assert names and names == [n for n in dir(tconstants) if n.isupper()]
+    for n in names:
+        assert getattr(tconstants, n) == getattr(jconstants, n), n
+
+
+@pytest.mark.parametrize("hw", [(60, 80), (96, 96), (130, 70)])
+def test_letterbox_matches_jax(hw):
+    img = np.random.default_rng(hw[0]).integers(0, 256, (*hw, 3), dtype=np.uint8)
+    got, got_rp = tdata.letterbox_np(img, (96, 96))
+    want, want_rp = jdata.letterbox_np(img, (96, 96))
+    np.testing.assert_array_equal(got, want)
+    assert got_rp == want_rp
+    boxes = np.array([[10.0, 12.0, 40.0, 50.0], [0.0, 0.0, 96.0, 96.0]])
+    np.testing.assert_array_equal(tdata.scale_boxes_back(boxes, got_rp, hw),
+                                  jdata.scale_boxes_back(boxes, want_rp, hw))
+
+
+@pytest.fixture(scope="module")
+def disk_dataset(tmp_path_factory):
+    """Five PNGs of three sizes with YOLO labels (one image unlabelled),
+    listed by a dataset yaml."""
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("rehomed_ds")
+    (root / "images").mkdir()
+    (root / "labels").mkdir()
+    rng = np.random.default_rng(5)
+    for i, hw in enumerate([(64, 80), (96, 96), (50, 120), (80, 64), (96, 72)]):
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(
+            root / "images" / f"im{i}.png")
+        if i == 3:
+            continue
+        rows = [f"{int(rng.integers(0, 3))} {rng.uniform(0.2, 0.8):.5f} {rng.uniform(0.2, 0.8):.5f}"
+                f" {rng.uniform(0.05, 0.3):.5f} {rng.uniform(0.05, 0.3):.5f}"
+                for _ in range(int(rng.integers(1, 5)))]
+        (root / "labels" / f"im{i}.txt").write_text("\n".join(rows) + "\n")
+    (root / "list.txt").write_text("\n".join(f"./images/im{i}.png" for i in range(5)))
+    (root / "ds.yaml").write_text("path: .\ntrain: list.txt\nval: list.txt\n"
+                                  "names:\n  0: a\n  1: b\n  2: c\n")
+    return root
+
+
+@pytest.mark.parametrize("image_dtype", ["uint8", "float32"])
+def test_dataset_and_batcher_match_jax(disk_dataset, image_dtype):
+    tds = tdata.DetectionDataset.from_yaml(str(disk_dataset / "ds.yaml"), split="val")
+    jds = jdata.DetectionDataset.from_yaml(str(disk_dataset / "ds.yaml"), split="val")
+    assert (tds.names, tds.number_of_classes, len(tds)) == (jds.names, jds.number_of_classes,
+                                                          len(jds)) == (["a", "b", "c"], 3, 5)
+    for a, b in zip(tds.labels, jds.labels):
+        assert a.im_file == b.im_file and a.shape == b.shape
+        np.testing.assert_array_equal(a.cls, b.cls)
+        np.testing.assert_array_equal(a.bboxes, b.bboxes)
+    tb = list(tdata.PaddedBatcher(tds, batch_size=2, img_size=64, max_gt=8,
+                                  image_dtype=image_dtype, workers=1))
+    jb = list(jdata.PaddedBatcher(jds, batch_size=2, img_size=64, max_gt=8,
+                                  image_dtype=image_dtype, workers=1))
+    assert len(tb) == len(jb) == 3
+    for a, b in zip(tb, jb):
+        assert a.keys() == b.keys()
+        for k in a:
+            if isinstance(a[k], np.ndarray):
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            else:
+                assert a[k] == b[k], k
+    assert tb[-1]["batch_mask"].tolist() == [True, False]
+
+
+def test_results_row_matches_jax(tmp_path):
+    class Method:
+        name, cluster_method = "Cosine_cl_stride", "one"
+        clusters = [[np.zeros((1, 4)), np.empty(0), np.zeros((2, 4))]]
+
+    metrics = {"mAP": 0.5, "U-AP": 0.25, "U-F1": 0.1, "U-PRE": 0.2, "U-REC": 0.3,
+               "A-OSE": 4.0, "WI-08": 0.01}
+    rows = []
+    for w in (twriter, jwriter):
+        row = w.method_info_row(Method(), "train", 0.15, 0.15, 0.95, "none")
+        for key in ("coco_ood", "coco_mixed"):
+            w.fill_dataset_results(row, key, metrics)
+        w.fill_dataset_results(row, "owod", metrics, "t1")
+        rows.append(w.finalize_row(row, "yolov8n", {"bf16": True}))
+    assert rows[0] == rows[1]
+    assert rows[0]["mean_n_clus"] == 1.5
+    t = twriter.append_results(rows[:1], str(tmp_path / "t"), "row")
+    j = jwriter.append_results(rows[1:], str(tmp_path / "j"), "row")
+    assert t.read_text() == j.read_text()
+
+
+def test_visualization_matches_jax():
+    img = np.random.default_rng(2).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    boxes = np.array([[4.0, 5.0, 30.0, 40.0], [10.0, 2.0, 60.0, 20.0]])
+    args = (img, boxes, ["c0 0.91", ""], [(255, 0, 0), (0, 255, 0)])
+    np.testing.assert_array_equal(tvis.draw_boxes(*args), jvis.draw_boxes(*args))

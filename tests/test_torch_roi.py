@@ -1,7 +1,14 @@
 """Port parity for the RoI / exact-position taps (ops/roi_align.py, kernel
 K2's plain version) against the JAX package and the NumPy torchvision
 roi_align oracle, on the CPU. Tolerance 1e-5: the same f32 axis weights
-contracted with the map in another summation order."""
+contracted with the map in another summation order.
+
+bf16 maps (--bf16): the plain contraction rounds Q = wy * wx to bf16 and
+sums bf16(Q) * f in f32, the contract of ops/pallas/roi.py:
+roi_matmul_level_pallas; it is held against that kernel's store variant
+(interpret mode) at f32 sum-order tolerance, and against its expand variant,
+which rounds wy to bf16 before the product, within one bf16 ulp of Q times
+sum |f|."""
 
 import functools
 
@@ -92,3 +99,90 @@ def test_roi_align_matches_torchvision_oracle(samples):
         torch.from_numpy(np.ascontiguousarray(fmap.transpose(0, 2, 3, 1))),
         torch.from_numpy(boxes)[None], scale, samples=samples)
     np.testing.assert_allclose(got[0].numpy(), ref[:, :, 0, 0].numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    """a rounded to bf16, as f32."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _bf16_level(seed, b, n2, h, w, c):
+    """A bf16 map and RoI-like axis weights: a run of positive hats per row,
+    plus one-hot rows as the exact tap has."""
+    rng = np.random.default_rng(seed)
+    f = _bf16(rng.normal(size=(b, h, w, c)).astype(np.float32))
+    wx = np.zeros((b, n2, w), np.float32)
+    wy = np.zeros((b, n2, h), np.float32)
+    for i in range(b):
+        for n in range(n2):
+            if n % 4 == 3:
+                wx[i, n, rng.integers(0, w)] = wy[i, n, rng.integers(0, h)] = 1.0
+                continue
+            x0, y0 = rng.integers(0, w), rng.integers(0, h)
+            x1, y1 = min(w, x0 + rng.integers(1, 9)), min(h, y0 + rng.integers(1, 9))
+            wx[i, n, x0:x1] = rng.uniform(0.01, 1, x1 - x0) / (x1 - x0)
+            wy[i, n, y0:y1] = rng.uniform(0.01, 1, y1 - y0) / (y1 - y0)
+    return f, wx, wy
+
+
+def _pallas_roi(f, wx, wy, variant, monkeypatch):
+    monkeypatch.setattr(proi.pl, "pallas_call",
+                        functools.partial(proi.pl.pallas_call, interpret=True))
+    return np.asarray(proi.roi_matmul_level_pallas(
+        jnp.asarray(f, jnp.bfloat16), jnp.asarray(wx), jnp.asarray(wy), variant=variant))
+
+
+@pytest.mark.parametrize("b,n2,h,w,c", [(2, 24, 12, 12, 16), (1, 40, 20, 16, 8)])
+def test_plain_bf16_matches_pallas_store(b, n2, h, w, c, monkeypatch):
+    f, wx, wy = _bf16_level(n2, b, n2, h, w, c)
+    ref = _pallas_roi(f, wx, wy, "store", monkeypatch)
+    got = troi.roi_contract(torch.from_numpy(f).to(torch.bfloat16), torch.from_numpy(wx),
+                            torch.from_numpy(wy))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+def test_plain_bf16_within_an_ulp_of_pallas_expand(monkeypatch):
+    """expand rounds wy to bf16 before forming Q, so its Q is bf16(bf16(wy)
+    * wx): each term may sit one bf16 ulp of Q (<= 2^-7 |Q|) away."""
+    f, wx, wy = _bf16_level(5, 2, 24, 12, 12, 16)
+    ref = _pallas_roi(f, wx, wy, "expand", monkeypatch)
+    got = troi.roi_contract_plain(torch.from_numpy(f).to(torch.bfloat16), torch.from_numpy(wx),
+                                  torch.from_numpy(wy)).numpy()
+    q = np.abs(wy[..., :, None] * wx[..., None, :]).reshape(2, 24, -1)
+    bound = 2.0 ** -7 * np.einsum("bnk,bkc->bnc", q, np.abs(f).reshape(2, -1, 16))
+    assert (np.abs(got - ref) <= bound + 1e-5 * np.abs(ref).max()).all()
+    assert np.abs(got - ref).max() > 0, "the variants agree exactly: the case checks nothing"
+
+
+def test_plain_bf16_is_the_f32_sum_of_rounded_q():
+    """The contract itself, in float64 from the bf16-rounded Q and map; the
+    one-hot rows reproduce the map's bf16 values exactly."""
+    f, wx, wy = _bf16_level(9, 2, 32, 10, 14, 8)
+    got = troi.roi_contract_plain(torch.from_numpy(f).to(torch.bfloat16), torch.from_numpy(wx),
+                                  torch.from_numpy(wy)).numpy()
+    q = _bf16((wy[..., :, None] * wx[..., None, :]).reshape(2, 32, -1)).astype(np.float64)
+    want = np.einsum("bnk,bkc->bnc", q, f.reshape(2, -1, 8).astype(np.float64))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    onehot = (wx.max(-1) == 1.0) & (wy.max(-1) == 1.0)
+    np.testing.assert_array_equal(got[onehot], want[onehot])
+
+
+@pytest.mark.parametrize("samples", [0, 4])
+def test_roi_and_exact_bf16_matches_jax(samples):
+    """Both packages' level-routed taps on bf16 maps (the JAX XLA branch,
+    ops/roi_align.py:307-311): bf16 outputs, one bf16 rounding of the same
+    f32 sums apart at most."""
+    fmaps, boxes, level, aidx = _setup(seed=4)
+    fmaps = [_bf16(f) for f in fmaps]
+    j_roi, j_ex = jroi.roi_and_exact_batched(
+        [jnp.asarray(f, jnp.bfloat16) for f in fmaps], jnp.asarray(boxes),
+        jnp.asarray(aidx, jnp.int32), jnp.asarray(level, jnp.int32), img_w=128, samples=samples)
+    t_roi, t_ex = troi.roi_and_exact_batched(
+        [torch.from_numpy(f).to(torch.bfloat16) for f in fmaps], torch.from_numpy(boxes),
+        torch.from_numpy(aidx), torch.from_numpy(level), img_w=128, samples=samples)
+    assert j_roi.dtype == jnp.bfloat16 and t_roi.dtype == torch.bfloat16
+    for t, j in ((t_roi, j_roi), (t_ex, j_ex)):
+        j = np.asarray(j, np.float32)
+        np.testing.assert_allclose(t.float().numpy(), j, rtol=2.0 ** -7, atol=1e-6 * np.abs(j).max())
+    np.testing.assert_array_equal(t_ex.float().numpy(), np.asarray(j_ex, np.float32))

@@ -1,0 +1,236 @@
+"""The port's inference stem (ops/stem.py) against the JAX package's, on the
+CPU: fused_stem_plain against models/folded_stem.py:phase_folded_stem (the
+JAX model's stem) in f32 and bf16 and against ops/pallas/stem.py:pallas_stem
+in interpret mode (the Pallas kernel that K4 replaces), the corner impulse
+that exercises every zero-padding path, the unfused Conv modules at v8l
+width, and the port's YOLOv8n forward with the folded stem on and off.
+
+Tolerances: f32 2e-5 (rtol and atol), the same convolutions summed in
+another order. bf16: 2 ** -7 of the map's largest magnitude, two bf16 ulps
+of it: both sides round at the same points (the folded convs' outputs, the
+multiply-add of inference BN, SiLU), but XLA and PyTorch may keep f32
+between two of them, so an element can land one ulp apart at each of the
+two roundings.
+
+Inputs come from numpy seeds; weights are HWIO on the JAX side and OIHW in
+the port."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ood_in_object_detection_tpu.models.folded_stem import phase_folded_stem, space_to_depth4
+from ood_in_object_detection_tpu.ops.pallas.stem import pallas_stem
+from ood_in_object_detection_torch.models import build_model, init_weights
+from ood_in_object_detection_torch.ops import stem as S
+from ood_in_object_detection_torch.utils.weights import calibrate_batchnorm
+from test_torch_kernels_cuda import k4_contract, stem_convs
+
+
+def _params(seed, c1, c2):
+    """JAX-side (HWIO, bn dicts) stem parameters, as tests/test_pallas_stem.py
+    draws them."""
+    rng = np.random.default_rng(seed)
+    w1 = (rng.normal(size=(3, 3, 3, c1)) * 0.5).astype(np.float32)
+    w2 = (rng.normal(size=(3, 3, c1, c2)) * 0.2).astype(np.float32)
+
+    def bn(c):
+        return {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                "bias": (rng.normal(size=c) * 0.1).astype(np.float32),
+                "mean": (rng.normal(size=c) * 0.1).astype(np.float32),
+                "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}
+
+    return w1, bn(c1), w2, bn(c2)
+
+
+def _torch_params(w1, bn1, w2, bn2):
+    tbn = lambda bn: {k: torch.from_numpy(v) for k, v in bn.items()}  # noqa: E731
+    return (torch.from_numpy(w1.transpose(3, 2, 0, 1).copy()), tbn(bn1),
+            torch.from_numpy(w2.transpose(3, 2, 0, 1).copy()), tbn(bn2))
+
+
+def _jax(fn, *args, **kw):
+    return fn(*[jnp.asarray(a) if isinstance(a, np.ndarray) else
+                {k: jnp.asarray(v) for k, v in a.items()} for a in args], **kw)
+
+
+def _plain(x, params, dtype):
+    """fused_stem_plain on NHWC numpy -> NHWC f32 numpy."""
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    return S.fused_stem_plain(xt, *_torch_params(*params), dtype).permute(0, 2, 3, 1).float().numpy()
+
+
+@pytest.mark.parametrize("c1,c2,h,w", [(16, 32, 32, 48), (64, 128, 64, 64), (80, 160, 32, 32)])
+def test_plain_matches_phase_folded_stem_f32(c1, c2, h, w):
+    params = _params(c1 + h, c1, c2)
+    x = np.random.default_rng(w).uniform(0, 1, (2, h, w, 3)).astype(np.float32)
+    want = np.asarray(_jax(phase_folded_stem, x, *params, dtype=jnp.float32))
+    got = _plain(x, params, torch.float32)
+    assert got.shape == (2, h // 4, w // 4, c2)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("c1,c2", [(16, 32), (64, 128)])
+def test_plain_matches_phase_folded_stem_bf16(c1, c2):
+    params = _params(c1, c1, c2)
+    x = np.random.default_rng(c2).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    want = _jax(phase_folded_stem, x, *params, dtype=jnp.bfloat16)
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want, np.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    got = S.fused_stem_plain(xt, *_torch_params(*params), torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= 2.0 ** -7, f"bf16 stem differs by {err} of the map's scale"
+
+
+@pytest.mark.parametrize("c1,c2,hw", [(16, 32, 64), (32, 64, 64), (16, 32, 128)])
+def test_plain_matches_pallas_stem(c1, c2, hw):
+    """The mirror of tests/test_pallas_stem.py:35-45, against the port."""
+    params = _params(hw + c1, c1, c2)
+    x = np.random.default_rng(hw).uniform(0, 1, (2, hw, hw, 3)).astype(np.float32)
+    z = space_to_depth4(jnp.asarray(x))
+    want = np.asarray(pallas_stem(z, *[jnp.asarray(p) if isinstance(p, np.ndarray) else
+                                       {k: jnp.asarray(v) for k, v in p.items()}
+                                       for p in params], dtype=jnp.float32, interpret=True))
+    np.testing.assert_allclose(_plain(x, params, torch.float32), want, rtol=2e-5, atol=2e-5)
+
+
+def test_corner_impulse_matches_jax():
+    """One bright pixel at the image corner: the top and left zero padding
+    of both convs (tests/test_pallas_stem.py:47-57)."""
+    params = _params(5, 16, 32)
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    x[0, 0, 0, 0] = 5.0
+    got = _plain(x, params, torch.float32)
+    folded = np.asarray(_jax(phase_folded_stem, x, *params, dtype=jnp.float32))
+    pallas = np.asarray(pallas_stem(space_to_depth4(jnp.asarray(x)),
+                                    *[jnp.asarray(p) if isinstance(p, np.ndarray) else
+                                      {k: jnp.asarray(v) for k, v in p.items()} for p in params],
+                                    dtype=jnp.float32, interpret=True))
+    np.testing.assert_allclose(got, folded, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, pallas, rtol=2e-5, atol=2e-5)
+
+
+def test_fused_stem_matches_unfused_convs_v8l_width():
+    """fused_stem (its plain version, on the CPU) against the two Conv
+    modules it replaces, at yolov8l's stem widths (C1=64, C2=128)."""
+    conv0, conv1 = stem_convs(_torch_params(*_params(11, 64, 128)))
+    x = torch.from_numpy(np.random.default_rng(11).uniform(0, 1, (2, 3, 64, 96)).astype(np.float32))
+    with torch.no_grad():
+        want = conv1(conv0(x))
+        got = S.fused_stem(x, conv0, conv1, torch.float32)
+    assert got.shape == want.shape == (2, 128, 16, 24)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=2e-5 * float(want.abs().max()))
+
+
+def test_bn_fold_matches_jax():
+    from ood_in_object_detection_tpu.ops.pallas.stem import _bn_fold
+
+    _, bn1, _, _ = _params(3, 16, 32)
+    inv, shift = S.bn_fold({k: torch.from_numpy(v) for k, v in bn1.items()})
+    jinv, jshift = _bn_fold({k: jnp.asarray(v) for k, v in bn1.items()})
+    np.testing.assert_allclose(inv.numpy(), np.asarray(jinv), rtol=1e-6)
+    np.testing.assert_allclose(shift.numpy(), np.asarray(jshift), rtol=1e-6, atol=1e-7)
+
+
+def test_k4_weights_layout():
+    """K4's operand layout: w1 (27, C1) holds the BN-folded conv1 weight of
+    channel o at [9 ci + 3 dy + dx, o]; w2 (C1, 9, C2) the conv2 weight of
+    output channel o at [c1, 3 dy + dx, o]."""
+    w1, bn1, w2, bn2 = _torch_params(*_params(4, 16, 64))
+    w1k, b1, w2k, b2 = S.k4_weights(w1, bn1, w2, bn2, torch.float32)
+    inv1, _ = S.bn_fold(bn1)
+    inv2, shift2 = S.bn_fold(bn2)
+    assert w1k.shape == (27, 16) and w2k.shape == (16, 9, 64)
+    np.testing.assert_allclose(w1k[9 * 2 + 3 * 1 + 0, 5].item(),
+                               (w1[5, 2, 1, 0] * inv1[5]).item(), rtol=1e-6)
+    np.testing.assert_allclose(w2k[5, 3 * 2 + 1, 39].item(),
+                               (w2[39, 5, 2, 1] * inv2[39]).item(), rtol=1e-6)
+    torch.testing.assert_close(b2, shift2)
+    bf = S.k4_weights(w1, bn1, w2, bn2, torch.bfloat16)[2]
+    assert torch.equal(bf, bf.to(torch.bfloat16).float()), "bf16 weights are not rounded"
+
+
+@pytest.mark.parametrize("shape,c1,c2", [((1, 3, 64, 64), 96, 128), ((1, 3, 64, 64), 64, 192),
+                                         ((1, 4, 64, 64), 16, 32), ((1, 3, 66, 64), 16, 32)])
+def test_k4_refuses_shapes(shape, c1, c2):
+    with pytest.raises(ValueError, match="K4 takes"):
+        S.check_k4_shapes(shape, c1, c2)
+
+
+@pytest.fixture(scope="module")
+def v8n():
+    model = build_model("yolov8n", nc=2)
+    init_weights(model, torch.Generator().manual_seed(3))
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (2, 3, 96, 96)).astype(np.float32))
+    calibrate_batchnorm(model, x)
+    return model, x
+
+
+def test_v8n_forward_folded_stem_on_off(v8n):
+    model, x = v8n
+    assert model._can_fold_stem(x)
+    with torch.no_grad():
+        on = model(x)
+        model.folded_stem = False
+        try:
+            off = model(x)
+        finally:
+            model.folded_stem = True
+    for a, b in zip(on[0] + on[1], off[0] + off[1]):
+        b = b.numpy()
+        np.testing.assert_allclose(a.numpy(), b, rtol=2e-5, atol=2e-5 * np.abs(b).max())
+
+
+def test_fold_gate(v8n):
+    """The JAX gate (yolo.py:398-410): no fold in training or for H, W not
+    multiples of 4; the fold calls fused_stem."""
+    model, x = v8n
+    assert not model._can_fold_stem(x[..., :94, :94])
+    model.train()
+    try:
+        assert not model._can_fold_stem(x)
+    finally:
+        model.eval()
+    calls = []
+    real = S.fused_stem
+
+    def spy(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+
+    import ood_in_object_detection_torch.models.yolo as Y
+
+    Y.fused_stem = spy
+    try:
+        with torch.no_grad():
+            model(x)
+            model(x[..., :94, :94])
+    finally:
+        Y.fused_stem = real
+    assert calls == [x.shape]
+
+
+@pytest.mark.parametrize("c1,c2", [(16, 32), (32, 64)])
+def test_k4_contract_matches_pallas_stem_bf16(c1, c2):
+    """K4's arithmetic, emulated in plain PyTorch (the CUDA tests hold the
+    kernel to it), is pallas_stem's in bf16: BN folded into bf16 weights,
+    f32 sums, the conv1 map rounded to bf16. Sum order aside, a conv1 value
+    may round to the other side: 2^-7 of the map's scale."""
+    params = _params(c1 + 1, c1, c2)
+    x = np.random.default_rng(c1).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    want = pallas_stem(space_to_depth4(jnp.asarray(x)),
+                       *[jnp.asarray(p) if isinstance(p, np.ndarray) else
+                         {k: jnp.asarray(v) for k, v in p.items()} for p in params],
+                       dtype=jnp.bfloat16, interpret=True)
+    want = np.asarray(want, np.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    got = k4_contract(xt, *_torch_params(*params), torch.bfloat16)
+    got = got.permute(0, 2, 3, 1).float().numpy()
+    assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()
+    plain = _plain(x, params, torch.bfloat16)
+    assert np.abs(plain - want).max() <= 2.0 ** -5 * np.abs(want).max()
