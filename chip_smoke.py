@@ -9,7 +9,7 @@ script exits non-zero without printing a result):
 1. env: torch / CUDA versions, the card's name and power limit (the raw
    ``nvidia-smi --query-gpu=name,power.limit`` line is printed on its own),
    TF32 switched off for matmuls and cuDNN convolutions.
-2. build: compile the four CUDA kernels from ``csrc/`` with nvcc, one
+2. build: compile the seven CUDA kernels from ``csrc/`` with nvcc, one
    process per source, all at once.
 3. e2e (the f32 path): yolov8l at 640 px, nc=20, seeded random weights
    (BatchNorm statistics calibrated on the run's images, the head's output
@@ -34,6 +34,14 @@ script exits non-zero without printing a result):
    impulse for the stem), with times from CUDA events, the least time the
    card could take (bound_ms) and one PyTorch call computing the same
    function where there is one (library_ms).
+8. stem_parts (the stem probe ladder's path): the ladder entry point
+   (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
+   driven through all four ladders at full size, z (128, 160(+2), 160, 48)
+   bf16, with the counters reset just before and read just after; the
+   window copy, shift-add and GEMM kernels must have launched. Then every
+   rung's kernel against its plain version on the same inputs: copies and
+   shifts bit-exact, GEMM modes within 2^-7 of the output's largest
+   magnitude; three more entries in the kernels line.
 
 The last lines are the ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
@@ -115,12 +123,16 @@ def counters():
     from ood_in_object_detection_torch.ops import nms as N
     from ood_in_object_detection_torch.ops import roi_align as R
     from ood_in_object_detection_torch.ops import stem as S
+    from ood_in_object_detection_torch.ops import stem_parts as SP
 
     return {"greedy_keep": (N.greedy_keep, "launches"),
             "roi_contract": (R.roi_contract, "launches"),
             "roi_contract_bf16": (R.roi_contract, "launches_bf16"),
             "min_group_distances": (D.min_group_distances, "launches"),
-            "fused_stem": (S.fused_stem, "launches")}
+            "fused_stem": (S.fused_stem, "launches"),
+            "window_copy": (SP.window_copy, "launches"),
+            "shift_add": (SP.shift_add, "launches"),
+            "stem_gemm": (SP.stem_gemm, "launches")}
 
 
 def reset_counters() -> None:
@@ -629,6 +641,74 @@ def phase_kernels(torch, det, det16, dist_method, images, launches, launches16):
     return entries
 
 
+# the stem ladder's kernels: (source, the rung whose numbers head the entry)
+STEM_PARTS = {
+    "window_copy": ("stem_parts_copy", "stem kernel [io]"),
+    "shift_add": ("stem_parts_shift", "tiled + shift concat"),
+    "stem_gemm": ("stem_parts_mm", "stem kernel [full]"),
+}
+STEM_PARTS_GEMM_TOL = 2.0 ** -7  # of the output's largest magnitude
+
+
+def phase_stem_parts(torch, size=(128, 160, 160)) -> list:
+    """The ladder entry point at full size with the counters reset, then
+    every rung's kernel against its plain version; -> three kernel entries."""
+    from ood_in_object_detection_torch.scripts import bench_stem_parts as BSP
+
+    b, h, w = size
+    reset_counters()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        BSP.main(["--device", DEVICE, "--batch", str(b), "--height", str(h), "--width", str(w)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    if not all(launches[k] for k in STEM_PARTS):
+        raise AssertionError(f"the ladder did not launch its kernels: {launches}")
+    emit("stem_parts", size=[b, h, w], seconds=seconds, launches=launches)
+
+    rungs = {k: [] for k in STEM_PARTS}
+    for ladder in (1, 2, 3, 4):
+        inputs = BSP.make_inputs(ladder, b, h, w, SEED, DEVICE)
+        for rung in (r for r in BSP.RUNGS if r.ladder == ladder and r.kind != "library"):
+            kernel = BSP.KERNEL_OF[rung.kind]
+            got = BSP.call(rung, inputs)
+            ref = BSP.call(rung, inputs, plain=True)
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            exact = bool(torch.equal(got, ref))
+            ok = exact if rung.kind != "mm" else err <= STEM_PARTS_GEMM_TOL * scale
+            emit("kernel_case", kernel=STEM_PARTS[kernel][0], case=rung.name, ladder=ladder,
+                 replaces=rung.site, shape=list(got.shape), max_abs_err=err,
+                 rel_err=err / scale if scale else 0.0, bit_exact=exact)
+            if not ok:
+                raise AssertionError(f"{kernel} rung {rung.name!r}: err {err} (scale {scale})")
+            lib = BSP.library_call(rung, inputs)
+            moved, ops = BSP.cost(rung, inputs, got)
+            rungs[kernel].append(dict(
+                rung=rung.name, replaces=rung.site, max_abs_err=err,
+                ms=cuda_ms(lambda: BSP.call(rung, inputs)),
+                plain_ms=cuda_ms(lambda: BSP.call(rung, inputs, plain=True)),
+                **BSP.bound(moved, ops),
+                library_ms=None if lib is None else cuda_ms(lib)))
+            del got, ref
+        del inputs
+    entries = []
+    for kernel, (source, head) in STEM_PARTS.items():
+        top = next(r for r in rungs[kernel] if r["rung"] == head)
+        lib = ("Tensor.copy_ of the slice into a tensor allocated beforehand" if
+               top["library_ms"] is not None else BSP.LIBRARY_NONE[
+                   "shift" if kernel == "shift_add" else "mm"])
+        entries.append(dict(
+            name=source, route="cuda", source=f"ood_in_object_detection_torch/csrc/{source}.cu",
+            replaces=", ".join(sorted({r["replaces"] for r in rungs[kernel]})),
+            launches=launches[kernel], headline_rung=head,
+            max_abs_err=max(r["max_abs_err"] for r in rungs[kernel]),
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            library=lib, shape=[b, h, w], rungs=rungs[kernel]))
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -654,6 +734,7 @@ def main() -> int:
     with torch.no_grad():
         entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
                                 launches, launches16)
+    entries += phase_stem_parts(torch)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries, "card": env["nvidia_smi"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": env["device"],

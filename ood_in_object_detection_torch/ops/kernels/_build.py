@@ -37,6 +37,9 @@ KERNELS = {
     "roi_contract": ("roi_contract_launch", [P, P, P, I, I, I, I, I, I, P, P]),
     "min_group_distance": ("min_group_distance_launch", [P, P, P, I, I, I, I, I, P, P]),
     "fused_stem": ("fused_stem_launch", [P, P, P, P, P, I, I, I, I, I, I, P, P]),
+    "stem_parts_copy": ("stem_parts_copy_launch", [P, P, I, I, I, I, I, I, I, P]),
+    "stem_parts_shift": ("stem_parts_shift_launch", [P, P, I, I, I, I, I, I, P]),
+    "stem_parts_mm": ("stem_parts_mm_launch", [P, P, P, I, I, I, I, I, P, P]),
 }
 
 _LIBS: dict = {}

@@ -1,5 +1,5 @@
-"""The PyTorch port imports neither jax, triton nor any module of the JAX
-package. Checked in a fresh subprocess, because tests/conftest.py imports jax
+"""The PyTorch port imports neither jax, triton, any module of the JAX
+package nor the repository's JAX scripts. Checked in a fresh subprocess, because tests/conftest.py imports jax
 into every test process."""
 
 import subprocess
@@ -9,13 +9,17 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
+# top-level modules the port must not import: JAX, Triton, the JAX package
+# and the repository's JAX scripts (scripts/bench_stem_parts*.py)
+FORBIDDEN = ("jax", "jaxlib", "flax", "triton", "ood_in_object_detection_tpu", "scripts",
+             "bench_stem_parts", "bench_stem_parts2", "bench_stem_parts3", "bench_stem_parts4")
 
 
 @pytest.mark.parametrize("modules", [
     # the main path and the CLI
     ["engine", "ood", "cli", "data", "eval", "constants", "core", "utils"],
-    # the kernels' wrappers and the model
-    ["ops", "models"],
+    # the kernels' wrappers, the model and the probe scripts
+    ["ops", "models", "scripts"],
 ])
 def test_port_imports_no_jax_or_triton(modules):
     """Every module of the port under ``modules``, found by walking the
@@ -27,8 +31,7 @@ def test_port_imports_no_jax_or_triton(modules):
             f"         if m.name.split('.')[1] in {modules!r}]\n"
             "for n in names:\n"
             "    importlib.import_module(n)\n"
-            "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'flax', 'triton', 'ood_in_object_detection_tpu'))\n"
+            f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
             "print(len(names), ','.join(bad) or '-')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
@@ -44,8 +47,8 @@ def test_chip_smoke_imports_no_jax():
     code = ("import sys, chip_smoke\n"
             "import ood_in_object_detection_torch.engine, ood_in_object_detection_torch.ood.pipeline\n"
             "import ood_in_object_detection_torch.ood.methods, ood_in_object_detection_torch.utils.weights\n"
-            "print(sorted(n for n in sys.modules if n.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'flax', 'triton', 'ood_in_object_detection_tpu')))\n")
+            "import ood_in_object_detection_torch.scripts.bench_stem_parts\n"
+            f"print(sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r}))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

@@ -16,6 +16,8 @@ from ood_in_object_detection_torch.ood import distance as D
 from ood_in_object_detection_torch.ops import nms as N
 from ood_in_object_detection_torch.ops import roi_align as R
 from ood_in_object_detection_torch.ops import stem as S
+from ood_in_object_detection_torch.ops import stem_parts as SP
+from ood_in_object_detection_torch.scripts import bench_stem_parts as BSP
 
 pytestmark = pytest.mark.cuda
 
@@ -216,3 +218,47 @@ def test_min_group_distance_kernel_matches_plain(dev, metric, n, g, k, d):
     # l2: sqrt of a cancelled difference near 0 (see tests/test_torch_distance.py)
     torch.testing.assert_close(got[fin], ref[fin], rtol=1e-5,
                                atol=1e-3 if metric == "l2" else 1e-5)
+
+
+# the stem probe ladder's kernels (ops/stem_parts.py): odd widths (a partial
+# 16-pixel strip), one row tile, several tiles with a partial last one, B=1
+
+@pytest.mark.parametrize("b,h,w", [(1, 7, 13), (2, 20, 16), (3, 45, 36), (2, 160, 160)])
+def test_window_copy_kernel_matches_plain(dev, b, h, w):
+    z = BSP.make_inputs(1, b, h, w, seed=b + h + w, device=dev)["z"]   # (B, H + 2, W, 48)
+    cases = [(z, 2, 32), (z, 0, 32), (z, 1, 48), (z, 2, 8)]
+    if w % 4 == 0:  # dense128: 4 pixels as one 192-channel row
+        cases.append((z.view(b, h + 2, w // 4, 192), 2, 128))
+    for src, row0, cout in cases:
+        before = SP.window_copy.launches
+        got = SP.window_copy(src, row0, cout)
+        assert SP.window_copy.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, SP.window_copy_plain(src, row0, cout))
+
+
+@pytest.mark.parametrize("shift", [1, 2])
+@pytest.mark.parametrize("n,r,w", [(1, 3, 13), (5, 22, 16), (4, 42, 37), (1024, 22, 160)])
+def test_shift_add_kernel_matches_plain(dev, n, r, w, shift):
+    z = BSP.make_inputs(1, n, r - 2, w, seed=n + r + w, device=dev)["z"]
+    before = SP.shift_add.launches
+    got = SP.shift_add(z, shift)
+    assert SP.shift_add.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, SP.shift_add_plain(z, shift))
+
+
+@pytest.mark.parametrize("mode", SP.GEMM_MODES)
+@pytest.mark.parametrize("b,h,w", [(1, 7, 13), (2, 20, 16), (1, 45, 37), (2, 41, 160)])
+def test_stem_gemm_kernel_matches_plain(dev, mode, b, h, w):
+    """Every GEMM mode within 2^-7 of the output's largest magnitude: f32
+    sums in another order may round h1 or the output to the other side."""
+    inputs = BSP.make_inputs(4 if mode.startswith("halo") else 1, b, h, w, seed=b * h + w,
+                             device=dev)
+    before = SP.stem_gemm.launches
+    got = SP.stem_gemm(inputs["z"], inputs, mode)
+    assert SP.stem_gemm.launches == before + 1
+    torch.cuda.synchronize()
+    ref = SP.stem_gemm_plain(inputs["z"], inputs, mode).float()
+    assert got.shape == (b, h, w, 32) and got.dtype == torch.bfloat16
+    assert float((got.float() - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())

@@ -1,0 +1,186 @@
+"""Port parity for the stem probe ladders (ops/stem_parts.py, the plain
+versions of the three kernels behind
+ood_in_object_detection_torch/scripts/bench_stem_parts.py) against the
+eight ``pl.pallas_call`` sites of scripts/bench_stem_parts{,2,3,4}.py, on
+the CPU.
+
+Each script's ``main()`` runs as written at a small size (B, H, W = 2, 40,
+16; H = 80 for ladder 2, whose th=80 rung needs it; ladder 3's ``rows``
+divided by 400 so that they divide the row count), with two patches:
+``timed`` calls each rung's function once on numpy-seeded inputs (the
+port's ``make_inputs``, handed to both packages), and ``pl.pallas_call``
+runs in interpret mode and records its full output. The scripts' own
+return values (sums over a sparse sample that never sees column 1) are
+not compared. Copies and shifts must match exactly; GEMM modes within
+2^-7 of the output's largest magnitude (one bf16 ulp of h1 or of the
+output where an f32 sum taken in another order rounds to the other side).
+"""
+
+import functools
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ood_in_object_detection_torch.ops import stem_parts as SP
+from ood_in_object_detection_torch.scripts import bench_stem_parts as BSP
+
+SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
+SCRIPT = {1: "bench_stem_parts", 2: "bench_stem_parts2", 3: "bench_stem_parts3",
+          4: "bench_stem_parts4"}
+SIZE = {1: (2, 40, 16), 2: (2, 80, 16), 3: (2, 40, 16), 4: (2, 40, 16)}
+GEMM_TOL = 2.0 ** -7
+
+
+def _load(ladder):
+    name = SCRIPT[ladder]
+    spec = importlib.util.spec_from_file_location(f"_jax_{name}", SCRIPTS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _to_jax(t):
+    return jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def recorded(ladder):
+    """-> (the port's inputs, {rung label: the Pallas kernel's full output})."""
+    m = _load(ladder)
+    b, h, w = SIZE[ladder]
+    inputs = BSP.make_inputs(ladder, b, h, w, seed=ladder)
+    by_shape = {tuple(t.shape): _to_jax(t) for k, t in inputs.items() if k.startswith("w")}
+    z = _to_jax(inputs["z"])
+    outputs, current = {}, [None]
+    pallas_call = m.pl.pallas_call
+
+    def recording_pallas_call(*args, **kwargs):
+        kernel = pallas_call(*args, interpret=True, **kwargs)
+
+        def run(*operands):
+            out = kernel(*operands)
+            assert current[0] not in outputs, f"{current[0]}: two pallas_calls"
+            outputs[current[0]] = np.asarray(out.astype(jnp.float32))
+            return out
+        return run
+
+    def timed(name, fn, *args, **_):
+        current[0] = name
+        fn(z, *(by_shape[tuple(a.shape)] for a in args[1:]), jnp.int32(0))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(m, "B", b)
+        mp.setattr(m, "H", h)
+        mp.setattr(m, "W", w)
+        mp.setattr(m, "timed", timed)
+        mp.setattr(m.pl, "pallas_call", recording_pallas_call)
+        if ladder == 3:
+            mp.setattr(m, "blocked2d", lambda rows, sem, f=m.blocked2d: f(rows // 400, sem))
+            mp.setattr(m, "dense128", lambda rows, f=m.dense128: f(rows // 400))
+        m.main()
+    return inputs, outputs
+
+
+def pallas_rungs(ladder):
+    return [r.name for r in BSP.RUNGS if r.ladder == ladder and r.kind != "library"]
+
+
+def check_rung(ladder, name):
+    inputs, outputs = recorded(ladder)
+    rung = next(r for r in BSP.RUNGS if r.ladder == ladder and r.name == name)
+    ref = outputs[name]
+    got = BSP.call(rung, inputs).float().numpy()   # CPU tensors: the plain versions
+    assert got.shape == ref.shape
+    if rung.kind == "mm":
+        err = np.abs(got - ref).max()
+        assert err <= GEMM_TOL * np.abs(ref).max(), (err, np.abs(ref).max())
+        assert np.abs(ref).max() > 0
+    else:
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, BSP.call(rung, inputs, plain=True).float().numpy())
+
+
+@pytest.mark.parametrize("ladder", [1, 2, 3, 4])
+def test_every_pallas_rung_of_main_is_ported(ladder):
+    """The port's rung table holds exactly the rungs whose kernels main()
+    launches (26: 5 + 8 + 7 + 6)."""
+    assert sorted(recorded(ladder)[1]) == sorted(pallas_rungs(ladder))
+
+
+@pytest.mark.parametrize("name", pallas_rungs(1))
+def test_ladder1_bench_stem_parts_matches_jax(name):
+    check_rung(1, name)
+
+
+@pytest.mark.parametrize("name", pallas_rungs(2))
+def test_ladder2_bench_stem_parts2_matches_jax(name):
+    check_rung(2, name)
+
+
+@pytest.mark.parametrize("name", pallas_rungs(3))
+def test_ladder3_bench_stem_parts3_matches_jax(name):
+    check_rung(3, name)
+
+
+@pytest.mark.parametrize("name", pallas_rungs(4))
+def test_ladder4_bench_stem_parts4_matches_jax(name):
+    check_rung(4, name)
+
+
+def test_bitcast_roll_is_a_two_pixel_shift():
+    """shift_bench('bitcast_roll') bitcasts pairs of bf16 rows into one int32
+    row, so its roll by 1 moves two pixels: it equals the port's shift 2
+    exactly and is not the one-pixel shift of the other two modes."""
+    inputs, outputs = recorded(2)
+    zt = inputs["zt20"]
+    got = outputs["tiled + shift bitcast_roll"]
+    np.testing.assert_array_equal(got, SP.shift_add_plain(zt, 2).float().numpy())
+    one = SP.shift_add_plain(zt, 1).float().numpy()
+    np.testing.assert_array_equal(outputs["tiled + shift concat"], one)
+    assert np.abs(got - one).max() > 1.0
+    # at column 1 the two-pixel shift reads the last pixel of the row above
+    zf = zt.float()
+    want = (zf[:, 3, 1, :32] + zf[:, 2, -1, :32]).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(got[:, 1, 1], want)
+
+
+def test_tile_windows_matches_jnp_stack():
+    z = BSP.make_inputs(2, 2, 40, 8, seed=3)["z"]
+    zj = _to_jax(z)
+    ref = jnp.stack([zj[:, k * 20:k * 20 + 22] for k in range(2)], 1).reshape(4, 22, 8, 48)
+    np.testing.assert_array_equal(BSP.tile_windows(z, 20).float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    z = torch.zeros(1, 6, 4, 48, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        SP.window_copy(z, row0=6)
+    with pytest.raises(ValueError):
+        SP.shift_add(z, 3)
+    with pytest.raises(ValueError):
+        SP.stem_gemm(z, {"w48": torch.zeros(48, 64, dtype=torch.bfloat16)}, "mm")
+    with pytest.raises(ValueError):
+        SP.stem_gemm(z, {}, "conv")
+
+
+def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
+    inputs = BSP.make_inputs(1, 1, 4, 8, seed=1)
+    before = (SP.window_copy.launches, SP.shift_add.launches, SP.stem_gemm.launches)
+    SP.window_copy(inputs["z"])
+    SP.shift_add(inputs["z"], 1)
+    for mode in SP.GEMM_MODES:
+        SP.stem_gemm(inputs["z"], inputs, mode)
+    assert (SP.window_copy.launches, SP.shift_add.launches, SP.stem_gemm.launches) == before
+
+
+def test_entry_point_runs_every_rung_on_the_cpu(capsys):
+    records = BSP.main(["--device", "cpu", "--batch", "1", "--height", "40", "--width", "8"])
+    assert [r["rung"] for r in records] == [r.name for r in BSP.RUNGS] + ["yardstick"]
+    # host times only: no device time, rate or bound from a CPU run
+    assert all("ms" not in r and "bound_ms" not in r and "gb_per_s" not in r for r in records)
+    assert len(capsys.readouterr().out.strip().splitlines()) == len(BSP.RUNGS) + 1
