@@ -33,7 +33,10 @@ script exits non-zero without printing a result):
    centroid bank with empty groups, yolov8n's stem widths and a corner
    impulse for the stem), with times from CUDA events, the least time the
    card could take (bound_ms) and one PyTorch call computing the same
-   function where there is one (library_ms).
+   function where there is one (library_ms). K2 also gets Q built from wx
+   and wy plus torch.bmm (library_with_q_ms) and, per level, the count of
+   non-empty rows and the median, p99 and largest support rectangle; K4
+   also gets the launcher alone on operands folded once (kernel_ms).
 8. stem_parts (the stem probe ladder's path): the ladder entry point
    (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
    driven through all four ladders at full size, z (128, 160(+2), 160, 48)
@@ -397,21 +400,23 @@ def phase_profile(torch, det, images, step_ms: float, steps: int = 3, label="pro
                    for t, k, c in host[:12]])
 
 
-def support_ops(torch, wx, wy, c: int) -> float:
-    """Operations (2 per multiply-add) of the contraction over each row's
-    support rectangle: what K2 computes for these rows."""
+def support_cells(torch, wx, wy):
+    """Cells of each row's support rectangle (0 for an all-zero row): what
+    K2 reads for these rows, (B, N2) float64."""
     def span(v):
         idx = torch.arange(v.shape[-1], device=v.device)
         lo = torch.where(v != 0, idx, v.shape[-1]).amin(-1)
         hi = torch.where(v != 0, idx, -1).amax(-1)
         return (hi - lo + 1).clamp(min=0).double()
 
-    return float((span(wx) * span(wy)).sum()) * 2.0 * c
+    return span(wx) * span(wy)
 
 
 def roi_entry(torch, R, name, replaces, out, launches, tol):
     """K2 on every level's map with the real RoI + exact-tap axis weights of
-    ``out``; against the plain version and torch.bmm of a materialised Q."""
+    ``out``; against the plain version, torch.bmm of a materialised Q, and
+    building Q from wx and wy plus torch.bmm. Per level, the count of
+    non-empty rows and their support rectangles (cells)."""
     level_args, err, off, moved, ops, qs = [], 0.0, 0, 0, 0.0, []
     kind = "bf16" if out.neck[0].dtype == torch.bfloat16 else "f32"
     for f in out.neck:
@@ -422,22 +427,43 @@ def roi_entry(torch, R, name, replaces, out, launches, tol):
         got, ref = R.roi_contract(f, wx, wy), R.roi_contract_plain(f, wx, wy)
         e = float((got - ref).abs().max() / ref.abs().max())
         err = max(err, float((got - ref).abs().max()))
+        cells = support_cells(torch, wx, wy)
+        used = cells[cells > 0]
+        onehot = (wx.amax(-1) == 1.0) & (wy.amax(-1) == 1.0)
+        onehot_exact = bool(torch.equal(got[onehot], ref[onehot]))
         emit("kernel_case", kernel=name, case=f"level_{h}x{w}", shape=list(f.shape),
-             dtype=kind, rows=wx.shape[1], rel_err=e)
-        if e > tol:
-            raise AssertionError(f"{name} level {h}x{w}: rel err {e} > {tol}")
+             dtype=kind, rows=wx.shape[1] * b, nonempty_rows=int(used.numel()),
+             onehot_rows=int(onehot.sum()), onehot_bit_exact=onehot_exact,
+             support_cells=dict(median=float(used.median()) if used.numel() else 0.0,
+                                p99=float(used.quantile(0.99)) if used.numel() else 0.0,
+                                max=float(used.max()) if used.numel() else 0.0,
+                                total=float(used.sum())),
+             rel_err=e)
+        if e > tol or (kind == "bf16" and not onehot_exact):
+            raise AssertionError(f"{name} level {h}x{w}: rel err {e} > {tol} or one-hot rows "
+                                 f"not bit-exact ({onehot_exact})")
         level_args.append((f, wx, wy))
         moved += nbytes(f, wx, wy, got)
-        ops += support_ops(torch, wx, wy, c)
+        ops += float(cells.sum()) * 2.0 * c
         q = (wy[..., :, None] * wx[..., None, :]).reshape(b, -1, h * w).to(f.dtype)
         qs.append((q, f.reshape(b, h * w, c)))
+
+    def q_then_bmm():
+        for f, wx, wy in level_args:
+            b, h, w, c = f.shape
+            q = (wy[..., :, None] * wx[..., None, :]).reshape(b, -1, h * w).to(f.dtype)
+            torch.bmm(q, f.reshape(b, h * w, c))
+
     return dict(name=name, route="cuda", source="ood_in_object_detection_torch/csrc/roi_contract.cu",
                 replaces=replaces, launches=launches, max_abs_err=err,
                 ms=cuda_ms(lambda: [R.roi_contract(*a) for a in level_args]),
                 plain_ms=cuda_ms(lambda: [R.roi_contract_plain(*a) for a in level_args]),
                 **bound(moved, ops, kind),
                 library_ms=cuda_ms(lambda: [torch.bmm(q, f) for q, f in qs]),
-                library="torch.bmm of the materialised Q (Q built beforehand), per level")
+                library="torch.bmm of the materialised Q (Q built beforehand), per level",
+                library_with_q_ms=cuda_ms(q_then_bmm),
+                library_with_q="Q = wy * wx formed and cast to the map dtype, then torch.bmm, "
+                               "per level, timed together")
 
 
 def stem_case_params(rng, c1, c2):
@@ -523,7 +549,10 @@ def stem_entry(torch, S, det, images, launches):
 
         moved = nbytes(xi) + (w1.numel() + w2.numel()) * xi.element_size() + \
             b * c2 * (h // 4) * (w // 4) * xi.element_size()
+        operands = S.k4_operands(w1, bn1, w2, bn2, dt)  # folded once, outside the timing
         timed[key] = dict(ms=cuda_ms(lambda: S.fused_stem(xi, m0, m1, dt)),
+                          kernel_ms=cuda_ms(
+                              lambda: S.fused_stem_launch(xi, operands, c1, c2, dt)),
                           plain_ms=cuda_ms(lambda: S.fused_stem_plain(xi, w1, bn1, w2, bn2, dt)),
                           library_ms=cuda_ms(library), max_abs_err=errs[key],
                           **bound(moved, ops, key))
@@ -532,7 +561,9 @@ def stem_entry(torch, S, det, images, launches):
                 replaces="ood_in_object_detection_tpu/ops/pallas/stem.py:172",
                 launches=launches, **timed["f32"], bf16=timed["bf16"],
                 library="two F.conv2d (BN folded into weight and bias) + F.silu, cuDNN, "
-                        "same dtype", shape=[b, 3, h, w], c1=c1, c2=c2)
+                        "same dtype", shape=[b, 3, h, w], c1=c1, c2=c2,
+                kernel_ms_is="the launcher on operands folded once before timing; ms is the "
+                             "wrapper, which folds BN and casts the weights on every call")
 
 
 def phase_kernels(torch, det, det16, dist_method, images, launches, launches16):

@@ -34,7 +34,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (entry point, argtypes); every entry point returns a cudaError_t
 KERNELS = {
     "nms_keep": ("nms_keep_launch", [P, P, F, I, I, P, P, P]),
-    "roi_contract": ("roi_contract_launch", [P, P, P, I, I, I, I, I, I, P, P]),
+    "roi_contract": ("roi_contract_launch", [P, P, P, I, I, I, I, I, I, I, P, P]),
     "min_group_distance": ("min_group_distance_launch", [P, P, P, I, I, I, I, I, P, P]),
     "fused_stem": ("fused_stem_launch", [P, P, P, P, P, I, I, I, I, I, I, P, P]),
     "stem_parts_copy": ("stem_parts_copy_launch", [P, P, I, I, I, I, I, I, I, P]),

@@ -89,6 +89,32 @@ def roi_contract_plain(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -
     return torch.einsum("bnk,bkc->bnc", q, fmap.reshape(b, h * w, c).float())
 
 
+# the largest map K2 takes (H * W): its cell index splits into row and
+# column by a float multiply, exact below this
+K2_MAX_CELLS = 1 << 20
+
+
+def k2_vector_path(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> bool:
+    """Raise on what kernel K2 does not take; -> True for its 16-byte path
+    (a lane loads 8 bf16 or 4 f32 channels at once), which needs a 16-byte
+    aligned map and C a multiple of 8 (bf16) or 4 (f32), False for its
+    scalar path (one channel per lane). Reads only dtypes, shapes, strides
+    and the address, so it runs on tensors of any device."""
+    if fmap.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"roi_contract: kernel K2 takes f32 or bf16 maps, got {fmap.dtype}")
+    if wx.dtype != torch.float32 or wy.dtype != torch.float32:
+        raise TypeError("roi_contract: axis weights must be f32")
+    for name, t in (("fmap", fmap), ("wx", wx), ("wy", wy)):
+        if not t.is_contiguous():
+            raise ValueError(f"roi_contract: {name} must be contiguous")
+    _, h, w, c = fmap.shape
+    if h * w > K2_MAX_CELLS:
+        raise ValueError(f"roi_contract: kernel K2 takes maps of at most {K2_MAX_CELLS} cells, "
+                         f"got {h}x{w}")
+    lanes = 8 if fmap.dtype == torch.bfloat16 else 4
+    return fmap.data_ptr() % 16 == 0 and c % lanes == 0
+
+
 def roi_contract(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
     """``out[b,n,c] = sum_h sum_w q(wy[b,n,h] wx[b,n,w]) fmap[b,h,w,c]`` with
     ``q`` the rounding to the map dtype: (B, H, W, C) f32 or bf16,
@@ -110,15 +136,12 @@ def roi_contract(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torc
     from .kernels import _build
 
     _build.require_cuda("roi_contract", fmap=fmap, wx=wx, wy=wy)
-    if fmap.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"roi_contract: kernel K2 takes f32 or bf16 maps, got {fmap.dtype}")
-    if wx.dtype != torch.float32 or wy.dtype != torch.float32:
-        raise TypeError("roi_contract: axis weights must be f32")
+    vec = k2_vector_path(fmap, wx, wy)
     n2 = wx.shape[1]
     bf16 = fmap.dtype == torch.bfloat16
     out = torch.empty((b, n2, c), dtype=torch.float32, device=fmap.device)
     code = _build.launcher("roi_contract")(
-        fmap.data_ptr(), wx.data_ptr(), wy.data_ptr(), b, h, w, c, n2, int(bf16),
+        fmap.data_ptr(), wx.data_ptr(), wy.data_ptr(), b, h, w, c, n2, int(bf16), int(vec),
         out.data_ptr(), _build.stream_handle(fmap.device))
     if bf16:
         roi_contract.launches_bf16 += 1

@@ -12,7 +12,9 @@ which the JAX model runs on every inference forward, models/yolo.py:398-431).
   channels with top-left zero padding, inference BN as one multiply-add in
   the compute dtype.
 - :func:`fused_stem` launches CUDA kernel K4 (``csrc/fused_stem.cu``) on CUDA
-  tensors and runs :func:`fused_stem_plain` on CPU tensors. K4 computes the
+  tensors and runs :func:`fused_stem_plain` on CPU tensors; in bf16 the
+  kernel runs on tensor cores and takes its weights in mma fragment order
+  (:func:`k4_pack_bf16`), in f32 it runs on CUDA cores. K4 computes the
   contract of pallas_stem: BN folded into the weights in f32
   (:func:`bn_fold`, stem.py:56-59), the folded weights and the image rounded
   to the compute dtype, f32 accumulation, f32 bias and SiLU, the conv1
@@ -145,6 +147,72 @@ def k4_weights(w1, bn1, w2, bn2, dtype: torch.dtype):
             b2.contiguous())
 
 
+def _mma_b_fragments(wmat: torch.Tensor) -> torch.Tensor:
+    """(L, K, N) with K % 16 == 0, N % 8 == 0 -> (N/8, L, K/16, 32, 4): the
+    B operand of mma.sync.m16n8k16 per n-tile, matrix and k-step, lane =
+    4 g + t holding rows 2t, 2t+1, 2t+8, 2t+9 of the k-step at column g."""
+    m, k, n = wmat.shape
+    w = wmat.reshape(m, k // 16, 2, 4, 2, n // 8, 8)   # (L, ks, half, t, e, nt, g)
+    return w.permute(5, 0, 1, 6, 3, 2, 4).reshape(n // 8, m, k // 16, 32, 4)
+
+
+_K4_PACK_INDEX: dict = {}
+
+
+def _k4_pack_index(c1: int, c2: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where each element of w1p and w2p comes from in ``cat([w1 folded
+    (C1, 27), w2 folded (C2, C1, 9), 0])`` flattened: the fragment order of
+    :func:`_mma_b_fragments` applied to flat indices, the padding pointing
+    at the trailing zero. Built once per widths and device: a layout, no
+    weights."""
+    key = (c1, c2, str(device))
+    if key not in _K4_PACK_INDEX:
+        c1p = -(-c1 // 16) * 16
+        zero = 27 * c1 + 9 * c1 * c2
+        ar = torch.arange
+        i1 = torch.full((32, c1p), zero, dtype=torch.long)
+        i1[:27, :c1] = ar(c1) * 27 + ar(27)[:, None]                   # W1[k, o] = w1[o, k]
+        i2 = torch.full((9, c1p, c2), zero, dtype=torch.long)
+        i2[:, :c1] = 27 * c1 + ar(c2) * (9 * c1) + ar(c1)[:, None] * 9 + ar(9)[:, None, None]
+        _K4_PACK_INDEX[key] = (_mma_b_fragments(i1[None])[:, 0].reshape(-1).to(device),
+                               _mma_b_fragments(i2).reshape(-1).to(device))
+    return _K4_PACK_INDEX[key]
+
+
+def k4_pack_bf16(w1, bn1, w2, bn2):
+    """K4's bf16 operands in its tensor-core layout: BN folded in f32, the
+    weights rounded to bf16 (the values of :func:`k4_weights`), C1 padded
+    with zeros to C1p, a multiple of 16 (one mma k-step):
+
+    - w1p bf16 (C1p/8, 2, 32, 4): the B fragments of W1 (32, C1p), rows
+      (ci, dy, dx) under 5 zero rows, per n-tile and k-step;
+    - b1p f32 (C1p,), zero past C1;
+    - w2p bf16 (C2/8, 9, C1p/16, 32, 4): the B fragments of each tap's W2
+      (C1p, C2), per n-tile, tap (3 dy + dx) and k-step;
+    - b2 f32 (C2,).
+
+    One gather through a cached index (:func:`_k4_pack_index`) puts both
+    weights in place, so folding and packing take a few launches."""
+    inv1, b1 = bn_fold(bn1)
+    inv2, b2 = bn_fold(bn2)
+    c2, c1 = w2.shape[:2]
+    c1p = -(-c1 // 16) * 16
+    src = torch.cat([(w1.float() * inv1[:, None, None, None]).reshape(-1),
+                     (w2.float() * inv2[:, None, None, None]).reshape(-1),
+                     w1.new_zeros(1, dtype=torch.float32)]).to(torch.bfloat16)
+    i1, i2 = _k4_pack_index(c1, c2, w1.device)
+    return (src[i1].view(c1p // 8, 2, 32, 4), F.pad(b1, (0, c1p - c1)),
+            src[i2].view(c2 // 8, 9, c1p // 16, 32, 4), b2.contiguous())
+
+
+def k4_operands(w1, bn1, w2, bn2, dtype: torch.dtype):
+    """What K4's launcher takes in ``dtype``: :func:`k4_weights` in f32,
+    :func:`k4_pack_bf16` in bf16."""
+    if dtype == torch.bfloat16:
+        return k4_pack_bf16(w1, bn1, w2, bn2)
+    return k4_weights(w1, bn1, w2, bn2, dtype)
+
+
 def check_k4_shapes(x_shape, c1: int, c2: int) -> None:
     """Raise on a shape K4 does not take."""
     b, cin, h, w = x_shape
@@ -171,14 +239,25 @@ def fused_stem(x: torch.Tensor, conv0, conv1, dtype: torch.dtype = torch.float32
         raise ValueError(f"fused_stem: (B, C, H, W) with H, W multiples of 4, got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return fused_stem_plain(x, w1, bn1, w2, bn2, dtype)
-    from .kernels import _build
-
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_stem: K4 computes in f32 or bf16, not {dtype}")
     c2, c1 = w2.shape[:2]
     check_k4_shapes(x.shape, c1, c2)
+    return fused_stem_launch(x, k4_operands(w1, bn1, w2, bn2, dtype), c1, c2, dtype)
+
+
+def fused_stem_launch(x: torch.Tensor, operands, c1: int, c2: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """Launch kernel K4 on a CUDA image (B, 3, H, W) with BN already folded
+    (:func:`k4_operands` in ``dtype``) -> (B, C2, H/4, W/4) in ``dtype``;
+    counts the launch in ``fused_stem.launches``."""
+    from .kernels import _build
+
+    check_k4_shapes(x.shape, c1, c2)
     x = x.to(dtype).contiguous()
-    w1k, b1, w2k, b2 = k4_weights(w1, bn1, w2, bn2, dtype)
+    if x.data_ptr() % 16:  # the bf16 kernel copies the image in 8-byte groups
+        x = x.clone()
+    w1k, b1, w2k, b2 = operands
     _build.require_cuda("fused_stem", x=x, w1=w1k, b1=b1, w2=w2k, b2=b2)
     b, _, h, w = x.shape
     out = torch.empty((b, c2, h // 4, w // 4), dtype=dtype, device=x.device)

@@ -96,6 +96,69 @@ def test_roi_contract_kernel_bf16_matches_plain(dev, b, h, w, c, n2):
     assert torch.equal(got[:, 1::2], ref[:, 1::2])
 
 
+def _k2_rows(rng, b, n2, h, w, kind):
+    """Axis weights of K2 test rows: ``full`` RoI hats over the whole map,
+    ``zero`` rows (another level's), ``onehot`` exact taps, ``mixed`` a bit
+    of each with random rectangles."""
+    wx = np.zeros((b, n2, w), np.float32)
+    wy = np.zeros((b, n2, h), np.float32)
+    for i in range(b):
+        for n in range(n2):
+            pick = kind if kind != "mixed" else ("zero", "onehot", "rect", "full")[n % 4]
+            if pick == "full":
+                wx[i, n] = rng.uniform(0.01, 1, w) / w
+                wy[i, n] = rng.uniform(0.01, 1, h) / h
+            elif pick == "onehot":
+                wx[i, n, rng.integers(0, w)] = wy[i, n, rng.integers(0, h)] = 1.0
+            elif pick == "rect":
+                x0, y0 = rng.integers(0, w), rng.integers(0, h)
+                x1, y1 = min(w, x0 + rng.integers(1, 20)), min(h, y0 + rng.integers(1, 20))
+                wx[i, n, x0:x1] = rng.uniform(size=x1 - x0) / (x1 - x0)
+                wy[i, n, y0:y1] = rng.uniform(size=y1 - y0) / (y1 - y0)
+    return wx, wy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [33, 64, 256, 512])
+@pytest.mark.parametrize("kind", ["full", "zero", "onehot", "mixed"])
+def test_roi_contract_kernel_rows(dev, dtype, c, kind):
+    """Rows whose support is the whole 80x80 map, all-zero rows, one-hot
+    rows and a mix, on both routes: within 1e-5 of the plain version (of
+    the scale in bf16), zeros exactly zero and one-hot rows bit-exact."""
+    rng = np.random.default_rng(c + len(kind))
+    b, n2, h, w = 2, (4 if kind == "full" else 40), 80, 80
+    f = torch.tensor(rng.normal(size=(b, h, w, c)), dtype=dtype, device=dev)
+    wx, wy = (torch.tensor(a, device=dev) for a in _k2_rows(rng, b, n2, h, w, kind))
+    assert R.k2_vector_path(f, wx, wy) is (c % (8 if dtype == torch.bfloat16 else 4) == 0)
+    got = R.roi_contract(f, wx, wy)
+    torch.cuda.synchronize()
+    ref = R.roi_contract_plain(f, wx, wy)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * max(float(ref.abs().max()), 1.0))
+    empty = (wx == 0).all(-1) | (wy == 0).all(-1)
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+    onehot = (wx.amax(-1) == 1.0) & (wy.amax(-1) == 1.0)
+    assert torch.equal(got[onehot], ref[onehot])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_contract_kernel_misaligned_map(dev, dtype):
+    """A contiguous map view that starts off a 16-byte boundary takes the
+    scalar path and agrees with the aligned map's result."""
+    rng = np.random.default_rng(7)
+    b, n2, h, w, c = 2, 24, 20, 20, 64
+    base = torch.tensor(rng.normal(size=b * h * w * c + 8), dtype=dtype, device=dev)
+    f = base[1:1 + b * h * w * c].view(b, h, w, c)
+    assert f.is_contiguous() and f.data_ptr() % 16 != 0
+    wx, wy = (torch.tensor(a, device=dev) for a in _k2_rows(rng, b, n2, h, w, "mixed"))
+    assert not R.k2_vector_path(f, wx, wy)
+    got = R.roi_contract(f, wx, wy)
+    aligned = R.roi_contract(f.clone(), wx, wy)
+    torch.cuda.synchronize()
+    ref = R.roi_contract_plain(f, wx, wy)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    torch.testing.assert_close(aligned, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
 def k4_contract(x, w1, bn1, w2, bn2, dtype):
     """K4's arithmetic (pallas_stem's contract) in plain PyTorch: BN folded
     into the weights in f32 and rounded to ``dtype``, f32 convs, f32 bias
@@ -184,6 +247,37 @@ def test_fused_stem_kernel_corner_impulse(dev, dtype):
     scale = float(ref.abs().max())
     assert float((got - ref).abs().max()) <= tol_plain * scale
     assert float((got - k4_contract(x, *params, dtype).float()).abs().max()) <= tol_contract * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_stem_kernel_padded_width(dev, dtype):
+    """C1 = 24 is no YOLOv8 width: the bf16 kernel pads it to 32 channels
+    (one more mma k-step of zero weights)."""
+    params = stem_params(24, 24, 48, dev)
+    x = torch.tensor(np.random.default_rng(24).uniform(0, 1, (2, 3, 96, 64)),
+                     dtype=torch.float32, device=dev)
+    got = S.fused_stem(x, *stem_convs(params), dtype).float()
+    torch.cuda.synchronize()
+    ref = S.fused_stem_plain(x, *params, dtype).float()
+    tol_plain, tol_contract = STEM_TOL[dtype]
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol_plain * scale
+    assert float((got - k4_contract(x, *params, dtype).float()).abs().max()) <= tol_contract * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_stem_launch_on_folded_operands(dev, dtype):
+    """The launcher on operands folded once (k4_operands) gives the
+    wrapper's result bit for bit and counts one launch."""
+    params = stem_params(3, 64, 128, dev)
+    convs = stem_convs(params)
+    x = torch.tensor(np.random.default_rng(3).uniform(0, 1, (2, 3, 128, 96)),
+                     dtype=torch.float32, device=dev)
+    ops = S.k4_operands(*params, dtype)
+    before = S.fused_stem.launches
+    got = S.fused_stem_launch(x, ops, 64, 128, dtype)
+    assert S.fused_stem.launches == before + 1
+    assert torch.equal(got, S.fused_stem(x, *convs, dtype))
 
 
 @pytest.mark.parametrize("c1,c2,shape", [(96, 192, (1, 3, 64, 64)), (64, 36, (1, 3, 64, 64)),

@@ -186,3 +186,53 @@ def test_roi_and_exact_bf16_matches_jax(samples):
         j = np.asarray(j, np.float32)
         np.testing.assert_allclose(t.float().numpy(), j, rtol=2.0 ** -7, atol=1e-6 * np.abs(j).max())
     np.testing.assert_array_equal(t_ex.float().numpy(), np.asarray(j_ex, np.float32))
+
+
+def _misaligned(shape, dtype):
+    """A contiguous tensor whose data starts one element past a 16-byte
+    aligned allocation."""
+    n = int(np.prod(shape))
+    base = torch.zeros(n + 8, dtype=dtype)
+    t = base[1:n + 1].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 != 0
+    return t
+
+
+@pytest.mark.parametrize("dtype,c,vector", [
+    (torch.bfloat16, 256, True), (torch.bfloat16, 512, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 33, False), (torch.bfloat16, 12, False),
+    (torch.float32, 256, True), (torch.float32, 12, True), (torch.float32, 33, False),
+    (torch.float32, 6, False)])
+def test_k2_path_by_channels(dtype, c, vector):
+    """K2 loads 8 bf16 or 4 f32 channels per lane where C allows it, else
+    one channel per lane."""
+    f = torch.zeros((2, 5, 7, c), dtype=dtype)
+    assert f.data_ptr() % 16 == 0
+    wx, wy = torch.zeros((2, 3, 7)), torch.zeros((2, 3, 5))
+    assert troi.k2_vector_path(f, wx, wy) is vector
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k2_path_scalar_for_misaligned_map(dtype):
+    f = _misaligned((1, 4, 4, 64), dtype)
+    assert troi.k2_vector_path(f, torch.zeros((1, 2, 4)), torch.zeros((1, 2, 4))) is False
+
+
+@pytest.mark.parametrize("case", ["f16_map", "f64_weights", "strided_map", "strided_wx",
+                                  "huge_map"])
+def test_k2_refuses_what_the_kernel_does_not_take(case):
+    f = torch.zeros((1, 4, 6, 8))
+    wx, wy = torch.zeros((1, 3, 6)), torch.zeros((1, 3, 4))
+    if case == "f16_map":
+        f, err = f.half(), TypeError
+    elif case == "f64_weights":
+        wx, err = wx.double(), TypeError
+    elif case == "strided_map":
+        f, err = torch.zeros((1, 6, 4, 8)).transpose(1, 2), ValueError
+    elif case == "strided_wx":
+        wx, err = torch.zeros((1, 6, 3)).transpose(1, 2), ValueError
+    else:
+        f, err = torch.zeros((1, 1025, 1024, 1)), ValueError
+        wx, wy = torch.zeros((1, 3, 1024)), torch.zeros((1, 3, 1025))
+    with pytest.raises(err):
+        troi.k2_vector_path(f, wx, wy)

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from ood_in_object_detection_tpu.models.folded_stem import phase_folded_stem, space_to_depth4
 from ood_in_object_detection_tpu.ops.pallas.stem import pallas_stem
@@ -234,3 +235,84 @@ def test_k4_contract_matches_pallas_stem_bf16(c1, c2):
     assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()
     plain = _plain(x, params, torch.bfloat16)
     assert np.abs(plain - want).max() <= 2.0 ** -5 * np.abs(want).max()
+
+
+def _unpack_mma_b(frags: np.ndarray) -> np.ndarray:
+    """(N/8, K/16, 32, 4) mma.sync m16n8k16 B fragments -> (K, N), from the
+    PTX fragment table: lane = 4 g + t holds B[2t + e % 2 + 8 (e // 2), g]
+    of its k-step and n-tile in element e."""
+    nts, kss = frags.shape[:2]
+    out = np.full((16 * kss, 8 * nts), np.nan, np.float32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for e in range(4):
+            k = 2 * t + e % 2 + 8 * (e // 2)
+            for ks in range(kss):
+                out[16 * ks + k, g::8] = frags[:, ks, lane, e]
+    return out
+
+
+@pytest.mark.parametrize("c1,c2", [(16, 32), (24, 48), (64, 128), (80, 160)])
+def test_k4_pack_bf16_unpacks_to_k4_weights(c1, c2):
+    """K4's tensor-core operands hold k4_weights' folded bf16 weights
+    exactly, at the mma fragment positions, with zeros in the padding."""
+    w1, bn1, w2, bn2 = _torch_params(*_params(c1 + c2, c1, c2))
+    w1k, b1, w2k, b2 = S.k4_weights(w1, bn1, w2, bn2, torch.bfloat16)
+    w1p, b1p, w2p, b2p = S.k4_operands(w1, bn1, w2, bn2, torch.bfloat16)
+    c1p = -(-c1 // 16) * 16
+    assert w1p.dtype == w2p.dtype == torch.bfloat16 and b1p.dtype == b2p.dtype == torch.float32
+    assert w1p.shape == (c1p // 8, 2, 32, 4) and w2p.shape == (c2 // 8, 9, c1p // 16, 32, 4)
+    assert w1p.is_contiguous() and w2p.is_contiguous()
+    want1 = np.zeros((32, c1p), np.float32)
+    want1[:27, :c1] = w1k.numpy()
+    np.testing.assert_array_equal(_unpack_mma_b(w1p.float().numpy()), want1)
+    for tap in range(9):
+        want2 = np.zeros((c1p, c2), np.float32)
+        want2[:c1] = w2k[:, tap].numpy()
+        np.testing.assert_array_equal(_unpack_mma_b(w2p[:, tap].float().numpy()), want2)
+    np.testing.assert_array_equal(b1p.numpy(), np.pad(b1.numpy(), (0, c1p - c1)))
+    np.testing.assert_array_equal(b2p.numpy(), b2.numpy())
+
+
+def _k4_packed_emulation(x: torch.Tensor, w1p, b1p, w2p, b2p) -> torch.Tensor:
+    """The bf16 kernel's two implicit GEMMs in plain PyTorch, on its packed
+    operands: conv1 as (pixels, 32) x (32, C1p) with K ordered (ci, dy, dx),
+    h1 rounded to bf16, conv2 as (pixels, 9 C1p) x (9 C1p, C2) with K
+    ordered (tap, c); products exact and sums in f64, bias and SiLU in f32."""
+    b, _, h, w = x.shape
+    w1 = torch.from_numpy(_unpack_mma_b(w1p.float().numpy())).double()
+    w2 = torch.cat([torch.from_numpy(_unpack_mma_b(w2p[:, t].float().numpy()))
+                    for t in range(9)]).double()                   # (9 C1p, C2)
+    c1p, c2 = w1.shape[1], w2.shape[1]
+    a1 = F.unfold(x.to(torch.bfloat16).double(), 3, padding=1, stride=2)   # (B, 27, L)
+    a1 = F.pad(a1.transpose(1, 2), (0, 5))                                 # (B, L, 32)
+    h1 = F.silu((a1 @ w1).float() + b1p).to(torch.bfloat16)
+    h1 = h1.transpose(1, 2).reshape(b, c1p, h // 2, w // 2).double()
+    a2 = F.unfold(h1, 3, padding=1, stride=2).reshape(b, c1p, 9, -1)       # (c, tap)
+    a2 = a2.permute(0, 3, 2, 1).reshape(b, -1, 9 * c1p)                    # (tap, c)
+    y = F.silu((a2 @ w2).float() + b2p).to(torch.bfloat16)
+    return y.transpose(1, 2).reshape(b, c2, h // 4, w // 4)
+
+
+@pytest.mark.parametrize("c1,c2,hw", [(16, 32, 32), (24, 48, 40), (64, 128, 48)])
+def test_k4_packed_emulation_matches_plain_bf16(c1, c2, hw):
+    """What the bf16 kernel computes from its packed operands agrees with
+    the plain version within 2^-5 of the map's scale and with its own
+    contract (k4_contract) within 2^-7: the tolerances the CUDA tests hold
+    the kernel to."""
+    params = _torch_params(*_params(c1 + hw, c1, c2))
+    x = torch.from_numpy(np.random.default_rng(hw).uniform(0, 1, (2, 3, hw, hw)).astype(np.float32))
+    got = _k4_packed_emulation(x, *S.k4_operands(*params, torch.bfloat16)).float()
+    ref = S.fused_stem_plain(x, *params, torch.bfloat16).float()
+    scale = float(ref.abs().max())
+    assert got.shape == ref.shape == (2, c2, hw // 4, hw // 4)
+    assert float((got - ref).abs().max()) <= 2.0 ** -5 * scale
+    own = k4_contract(x, *params, torch.bfloat16).float()
+    assert float((got - own).abs().max()) <= 2.0 ** -7 * scale
+
+
+def test_k4_operands_f32_are_k4_weights():
+    params = _torch_params(*_params(6, 16, 32))
+    for got, want in zip(S.k4_operands(*params, torch.float32),
+                         S.k4_weights(*params, torch.float32)):
+        assert torch.equal(got, want)
