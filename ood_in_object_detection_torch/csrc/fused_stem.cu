@@ -47,9 +47,10 @@
 // - conv1: M = the 289 conv1 cells, N = C1 (padded to 16), K = 27 padded to
 //   32; A is built in registers from the staged image patch. SiLU uses the
 //   fast exponential and division: a few f32 ulp, below the bf16 rounding.
-// - The next tile's image patch is copied with cp.async while this tile
-//   computes. The output tile goes through shared memory, so each channel's
-//   8-pixel row segment is one 16-byte store.
+// - The tile's image patch is copied with cp.async (8-byte groups, zeros
+//   outside the image; prefetching the next tile's patch measured slower).
+//   The output tile goes through shared memory, so each channel's 8-pixel
+//   row segment is one 16-byte store.
 //
 // f32 (fused_stem_kernel): TF32 is off by contract, so CUDA cores, with
 // register tiling: in conv2 each thread holds 4 pixels x 8 output channels
@@ -265,7 +266,7 @@ struct Stem16Args {
 constexpr int kRedFloats = 2 * kMaxNt * 4 * 32 * kGroup;
 
 // Shared memory of one block, in bytes: the block's slice of w2p, w1p, the
-// biases, two image patches and the conv1 tile (the second group's partial
+// biases, the image patch and the conv1 tile (the second group's partial
 // sums, then the output stage, reuse it)
 __host__ __device__ inline size_t stem16_h1_bytes(int c1p, int nb) {
   const size_t h1 = static_cast<size_t>(kSlots) * (2 * c1p + 16);
@@ -277,7 +278,7 @@ __host__ __device__ inline size_t stem16_h1_bytes(int c1p, int nb) {
 __host__ __device__ inline size_t stem16_smem_bytes(int c1p, int nb) {
   return static_cast<size_t>(nb) * 9 * c1p * 2 + static_cast<size_t>(c1p) * 64 +
          static_cast<size_t>(c1p) * 4 + static_cast<size_t>(nb) * 4 +
-         2 * static_cast<size_t>(kPatchElems) * 2 + stem16_h1_bytes(c1p, nb);
+         static_cast<size_t>(kPatchElems) * 2 + stem16_h1_bytes(c1p, nb);
 }
 
 // Stage the 35x35x3 image patch of an output tile (image rows 4 oy0 - 3 ..,
@@ -323,7 +324,7 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
   float* b2s = reinterpret_cast<float*>(p);
   p += nb * 4;  // nb is a multiple of 8: 16-byte alignment kept
   __nv_bfloat16* patch = reinterpret_cast<__nv_bfloat16*>(p);
-  p += 2 * kPatchElems * 2;
+  p += kPatchElems * 2;
   unsigned char* h1 = p;  // [kSlots][p1 bytes]; later the stage [nb][kStagePitch] bf16
   __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(p);
 
@@ -341,8 +342,6 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
     for (int i = tid; i < nb; i += kThreads16) b2s[i] = a.b2[n0 + i];
   }
   const int G = gridDim.x / a.nsplit;
-  int tile = blockIdx.x / a.nsplit;
-  if (tile < a.tiles) load_patch(a, tile, patch);
   cp_async_commit();
 
   // conv1 A: the patch offsets of this lane's 8 k values (-1: zero padding)
@@ -370,12 +369,11 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
   const uint2* w2f = reinterpret_cast<const uint2*>(w2s);
   const uint2* w1f = reinterpret_cast<const uint2*>(w1s);
 
-  for (int it = 0; tile < a.tiles; tile += G, ++it) {
-    const __nv_bfloat16* pt = patch + (it & 1) * kPatchElems;
+  for (int tile = blockIdx.x / a.nsplit; tile < a.tiles; tile += G) {
+    load_patch(a, tile, patch);
+    cp_async_commit();
     cp_async_wait_all();
     __syncthreads();  // the patch (and, first time, the operands) landed; the stage is free
-    if (tile + G < a.tiles) load_patch(a, tile + G, patch + ((it + 1) & 1) * kPatchElems);
-    cp_async_commit();
 
     const int b = tile / a.tiles_per_image, rem = tile % a.tiles_per_image;
     const int oy0 = (rem / a.tiles_x) * kTile, ox0 = (rem % a.tiles_x) * kTile;
@@ -383,7 +381,7 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
     const int ry0 = 2 * oy0 - 1, rx0 = 2 * ox0 - 1;
 
     // conv1 + BN + SiLU -> h1 (bf16), zero outside the conv1 map
-    const unsigned short* pu = reinterpret_cast<const unsigned short*>(pt);
+    const unsigned short* pu = reinterpret_cast<const unsigned short*>(patch);
     for (int mt = warp; mt < kM1Tiles; mt += kWarps16) {
       unsigned afr[2][4];
 #pragma unroll
