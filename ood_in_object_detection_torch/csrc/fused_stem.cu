@@ -42,15 +42,17 @@
 //   next k-step's fragments before the current products. That keeps the
 //   shared-memory traffic of 8 warps (each tile reads A 4 times and B twice:
 //   ~590 KB at yolov8l, the bound of this design at 128 B per cycle) with
-//   twice the warps to hide latency. The groups' sums meet in shared memory
-//   in a fixed order.
+//   twice the warps to hide latency. The groups' sums meet in shared memory:
+//   each thread finishes one of its two m-tiles and hands the other to its
+//   peer in the other group, so both groups share the epilogue.
 // - conv1: M = the 289 conv1 cells, N = C1 (padded to 16), K = 27 padded to
 //   32; A is built in registers from the staged image patch. SiLU uses the
 //   fast exponential and division: a few f32 ulp, below the bf16 rounding.
-// - The tile's image patch is copied with cp.async (8-byte groups, zeros
-//   outside the image; prefetching the next tile's patch measured slower).
-//   The output tile goes through shared memory, so each channel's 8-pixel
-//   row segment is one 16-byte store.
+// - The next tile's image patch is copied with cp.async (8-byte groups,
+//   zeros outside the image) while conv2 runs; issued before conv1 instead,
+//   it measured slower than no prefetch. The output tile goes through
+//   shared memory, so each channel's 8-pixel row segment is one 16-byte
+//   store.
 //
 // f32 (fused_stem_kernel): TF32 is off by contract, so CUDA cores, with
 // register tiling: in conv2 each thread holds 4 pixels x 8 output channels
@@ -262,23 +264,23 @@ struct Stem16Args {
   int H, W, C1p, C2, nsplit, tiles_x, tiles_per_image, tiles;
 };
 
-// conv2 accumulators of one group: 2 m-tiles x kMaxNt n-tiles x 4 per thread
+// conv2 partial sums the two groups exchange: each thread hands its peer
+// one m-tile's kMaxNt n-tiles x 4
 constexpr int kRedFloats = 2 * kMaxNt * 4 * 32 * kGroup;
 
 // Shared memory of one block, in bytes: the block's slice of w2p, w1p, the
-// biases, the image patch and the conv1 tile (the second group's partial
-// sums, then the output stage, reuse it)
+// biases, two image patches and the conv1 tile (the exchanged partial sums
+// and the output stage, side by side, reuse it)
 __host__ __device__ inline size_t stem16_h1_bytes(int c1p, int nb) {
   const size_t h1 = static_cast<size_t>(kSlots) * (2 * c1p + 16);
-  const size_t stage = static_cast<size_t>(nb) * kStagePitch * 2;
-  const size_t red = static_cast<size_t>(kRedFloats) * 4;
-  const size_t m = h1 > stage ? h1 : stage;
-  return m > red ? m : red;
+  const size_t red_stage =
+      static_cast<size_t>(kRedFloats) * 4 + static_cast<size_t>(nb) * kStagePitch * 2;
+  return h1 > red_stage ? h1 : red_stage;
 }
 __host__ __device__ inline size_t stem16_smem_bytes(int c1p, int nb) {
   return static_cast<size_t>(nb) * 9 * c1p * 2 + static_cast<size_t>(c1p) * 64 +
          static_cast<size_t>(c1p) * 4 + static_cast<size_t>(nb) * 4 +
-         static_cast<size_t>(kPatchElems) * 2 + stem16_h1_bytes(c1p, nb);
+         2 * static_cast<size_t>(kPatchElems) * 2 + stem16_h1_bytes(c1p, nb);
 }
 
 // Stage the 35x35x3 image patch of an output tile (image rows 4 oy0 - 3 ..,
@@ -324,9 +326,10 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
   float* b2s = reinterpret_cast<float*>(p);
   p += nb * 4;  // nb is a multiple of 8: 16-byte alignment kept
   __nv_bfloat16* patch = reinterpret_cast<__nv_bfloat16*>(p);
-  p += kPatchElems * 2;
-  unsigned char* h1 = p;  // [kSlots][p1 bytes]; later the stage [nb][kStagePitch] bf16
-  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(p);
+  p += 2 * kPatchElems * 2;
+  unsigned char* h1 = p;  // [kSlots][p1 bytes]; later the partial sums, then the stage
+  float* red = reinterpret_cast<float*>(p);                         // [kRedFloats]
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(p + kRedFloats * 4);  // [nb][pitch]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -342,6 +345,8 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
     for (int i = tid; i < nb; i += kThreads16) b2s[i] = a.b2[n0 + i];
   }
   const int G = gridDim.x / a.nsplit;
+  int tile = blockIdx.x / a.nsplit;
+  if (tile < a.tiles) load_patch(a, tile, patch);
   cp_async_commit();
 
   // conv1 A: the patch offsets of this lane's 8 k values (-1: zero padding)
@@ -369,9 +374,8 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
   const uint2* w2f = reinterpret_cast<const uint2*>(w2s);
   const uint2* w1f = reinterpret_cast<const uint2*>(w1s);
 
-  for (int tile = blockIdx.x / a.nsplit; tile < a.tiles; tile += G) {
-    load_patch(a, tile, patch);
-    cp_async_commit();
+  for (int it = 0; tile < a.tiles; tile += G, ++it) {
+    const __nv_bfloat16* pt = patch + (it & 1) * kPatchElems;
     cp_async_wait_all();
     __syncthreads();  // the patch (and, first time, the operands) landed; the stage is free
 
@@ -381,7 +385,7 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
     const int ry0 = 2 * oy0 - 1, rx0 = 2 * ox0 - 1;
 
     // conv1 + BN + SiLU -> h1 (bf16), zero outside the conv1 map
-    const unsigned short* pu = reinterpret_cast<const unsigned short*>(patch);
+    const unsigned short* pu = reinterpret_cast<const unsigned short*>(pt);
     for (int mt = warp; mt < kM1Tiles; mt += kWarps16) {
       unsigned afr[2][4];
 #pragma unroll
@@ -425,6 +429,9 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
       }
     }
     __syncthreads();  // h1 complete
+    // the next tile's patch, into the other buffer, while conv2 runs
+    if (tile + G < a.tiles) load_patch(a, tile + G, patch + ((it + 1) & 1) * kPatchElems);
+    cp_async_commit();
 
     // conv2: 9 taps x C1p/16 k-steps; the next step's fragments are loaded
     // before this step's products
@@ -482,45 +489,30 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
         mma_all(a1, bq1);
       }
     }
-    // the two groups' sums meet in shared memory (where h1 was), in a fixed
-    // order; then bias + SiLU -> stage[n][pixel] (bf16, where h1 was)
-    float* red = reinterpret_cast<float*>(h1);
+    // The two groups' sums meet in shared memory (where h1 was): the thread
+    // of group g finishes m-tile 2 mp + g of its fragments and hands the
+    // other m-tile to the thread with the same place in the other group.
+    // Then bias + SiLU -> stage[n][pixel] (bf16).
     __syncthreads();  // every warp is done with h1
-    if (group) {
 #pragma unroll
-      for (int j = 0; j < kMaxNt; ++j)
+    for (int j = 0; j < kMaxNt; ++j)
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            red[((j * 2 + mi) * 4 + e) * 32 * kGroup + gt] = acc[mi][j][e];
-    }
+      for (int e = 0; e < 4; ++e)
+        red[((group * kMaxNt + j) * 4 + e) * 32 * kGroup + gt] =
+            group ? acc[0][j][e] : acc[1][j][e];
     __syncthreads();
-    if (!group) {
 #pragma unroll
-      for (int j = 0; j < kMaxNt; ++j)
+    for (int j = 0; j < kMaxNt; ++j)
+      if (j < nt_count) {
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[mi][j][e] += red[((j * 2 + mi) * 4 + e) * 32 * kGroup + gt];
-    }
-    __syncthreads();
-    if (!group) {
-#pragma unroll
-      for (int j = 0; j < kMaxNt; ++j)
-        if (j < nt_count) {
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int m = (2 * mp + mi) * 16 + g + 8 * (e >> 1);
-              const int n = (nq + kNq * j) * 8 + 2 * t + (e & 1);
-              stage[n * kStagePitch + m] =
-                  __float2bfloat16_rn(silu_fast(acc[mi][j][e] + b2s[n]));
-            }
+        for (int e = 0; e < 4; ++e) {
+          const float sum = (group ? acc[1][j][e] : acc[0][j][e]) +
+                            red[(((1 - group) * kMaxNt + j) * 4 + e) * 32 * kGroup + gt];
+          const int m = (2 * mp + group) * 16 + g + 8 * (e >> 1);
+          const int n = (nq + kNq * j) * 8 + 2 * t + (e & 1);
+          stage[n * kStagePitch + m] = __float2bfloat16_rn(silu_fast(sum + b2s[n]));
         }
-    }
+      }
     __syncthreads();
 
     // NCHW store: one 16-byte row segment (8 pixels) per channel and row
