@@ -29,14 +29,17 @@ script exits non-zero without printing a result):
 6. profile, profile_bf16: device time of the predict step by kernel
    (torch.profiler).
 7. kernels: each kernel against its plain PyTorch version on the card, on
-   tensors captured from the main paths (plus a controlled NMS case, a K=5
-   centroid bank with empty groups, yolov8n's stem widths and a corner
-   impulse for the stem), with times from CUDA events, the least time the
-   card could take (bound_ms) and one PyTorch call computing the same
-   function where there is one (library_ms). K2 also gets Q built from wx
-   and wy plus torch.bmm (library_with_q_ms) and, per level, the count of
-   non-empty rows and the median, p99 and largest support rectangle; K4
-   also gets the launcher alone on operands folded once (kernel_ms).
+   tensors captured from the main paths (plus controlled, chain and
+   k = 4096 NMS cases, a K=5 centroid bank with empty groups, yolov8n's
+   stem widths and a corner impulse for the stem), with times from CUDA
+   events, the least time the card could take (bound_ms) and one PyTorch
+   call computing the same function where there is one (library_ms). K1
+   also gets each case's device time per phase, mask and sweep
+   (torch.profiler, phase_ms) and valid candidates per image; K2 gets Q
+   built from wx and wy plus torch.bmm (library_with_q_ms) and, per level,
+   the count of non-empty rows and the median, p99 and largest support
+   rectangle; K4 gets the launcher alone on operands folded once
+   (kernel_ms).
 8. stem_parts (the stem probe ladder's path): the ladder entry point
    (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
    driven through all four ladders at full size, z (128, 160(+2), 160, 48)
@@ -466,6 +469,46 @@ def roi_entry(torch, R, name, replaces, out, launches, tol):
                                "per level, timed together")
 
 
+def nms_entry(torch, N, shifted, valid, launches):
+    """K1 on the main path's (8, 1024) candidates, on controlled boxes at
+    k = 1024, on a chain (greedy keeps every second box) and on 4096 valid
+    boxes: keep masks bit-equal to the plain version, the wrapper's time and
+    each case's device time per phase (mask, sweep; torch.profiler)."""
+    from ood_in_object_detection_torch.scripts import bench_k1_k4 as BK
+
+    cases = {"main_path": (shifted, valid)}
+    for label, (b, v) in BK.k1_cases().items():
+        cases[label] = (torch.tensor(b, dtype=torch.float32, device=DEVICE),
+                        torch.tensor(v, device=DEVICE))
+    mism, err = 0, 0.0
+    for label, (b, v) in cases.items():
+        got = N.greedy_keep(b, v, 0.7)
+        ref = N.greedy_keep_plain(b, v, 0.7)
+        mism += int((got != ref).sum())
+        err = max(err, float((got.float() - ref.float()).abs().max()))
+        if label == "chain" and not torch.equal(ref, (torch.arange(1024, device=DEVICE) % 2 == 0)
+                                                .expand_as(ref)):
+            raise AssertionError("nms_keep chain: the plain version does not keep every second box")
+        emit("kernel_case", kernel="nms_keep", case=label, shape=list(b.shape),
+             kept=int(got.sum()), valid=int(v.sum()), valid_per_image=v.sum(1).tolist(),
+             mismatches=int((got != ref).sum()),
+             ms=cuda_ms(lambda: N.greedy_keep(b, v, 0.7)), phase_ms=BK.k1_phase_ms(b, v, 20))
+    if mism:
+        raise AssertionError(f"nms_keep: {mism} keep-mask entries differ from the plain version")
+    nv = valid.sum(1).double()
+    pairs = float((nv * (nv - 1) / 2).sum())  # IoU tests among valid boxes, ~13 flops each
+    return dict(name="nms_keep", route="cuda",
+                source="ood_in_object_detection_torch/csrc/nms_keep.cu",
+                replaces="ood_in_object_detection_tpu/ops/pallas/nms.py:65",
+                launches=launches, max_abs_err=err,
+                ms=cuda_ms(lambda: N.greedy_keep(shifted, valid, 0.7)),
+                phase_ms=BK.k1_phase_ms(shifted, valid, 20),
+                plain_ms=cuda_ms(lambda: N.greedy_keep_plain(shifted, valid, 0.7)),
+                **bound(nbytes(shifted, valid, valid), 13.0 * pairs, "f32"),
+                library_ms=None,
+                library="none: no single PyTorch call computes a greedy-NMS keep mask")
+
+
 def stem_case_params(rng, c1, c2):
     """Seeded (w1, bn1, w2, bn2) at a stem's widths, on the card."""
     import torch
@@ -584,37 +627,7 @@ def phase_kernels(torch, det, det16, dist_method, images, launches, launches16):
     total = {k: launches[k] + launches16[k] for k in launches}
     entries = []
 
-    # K1: the main path's (8, 1024) candidates, and controlled boxes at k=1024
-    crng = np.random.default_rng(SEED + 2)
-    centres = crng.uniform(20, 600, (BATCH, 257, 2))
-    pick = crng.integers(0, 257, (BATCH, 1024))
-    c = np.take_along_axis(centres, pick[..., None], 1) + crng.normal(0, 4, (BATCH, 1024, 2))
-    wh = crng.uniform(20, 120, (BATCH, 1024, 2))
-    ctrl = torch.tensor(np.concatenate([c - wh / 2, c + wh / 2], -1), dtype=torch.float32,
-                        device=DEVICE)
-    ctrl_valid = torch.tensor(crng.uniform(size=(BATCH, 1024)) > 0.1, device=DEVICE)
-    cases = {"main_path": (shifted, valid), "controlled": (ctrl, ctrl_valid)}
-    mism, err = 0, 0.0
-    for label, (b, v) in cases.items():
-        got = N.greedy_keep(b, v, 0.7)
-        ref = N.greedy_keep_plain(b, v, 0.7)
-        mism += int((got != ref).sum())
-        err = max(err, float((got.float() - ref.float()).abs().max()))
-        emit("kernel_case", kernel="nms_keep", case=label, shape=list(b.shape),
-             kept=int(got.sum()), valid=int(v.sum()), mismatches=int((got != ref).sum()))
-    if mism:
-        raise AssertionError(f"nms_keep: {mism} keep-mask entries differ from the plain version")
-    nv = valid.sum(1).double()
-    pairs = float((nv * (nv - 1) / 2).sum())  # IoU tests among valid boxes, ~13 flops each
-    entries.append(dict(name="nms_keep", route="cuda",
-                        source="ood_in_object_detection_torch/csrc/nms_keep.cu",
-                        replaces="ood_in_object_detection_tpu/ops/pallas/nms.py:65",
-                        launches=total["greedy_keep"], max_abs_err=err,
-                        ms=cuda_ms(lambda: N.greedy_keep(shifted, valid, 0.7)),
-                        plain_ms=cuda_ms(lambda: N.greedy_keep_plain(shifted, valid, 0.7)),
-                        **bound(nbytes(shifted, valid, valid), 13.0 * pairs, "f32"),
-                        library_ms=None,
-                        library="none: no single PyTorch call computes a greedy-NMS keep mask"))
+    entries.append(nms_entry(torch, N, shifted, valid, total["greedy_keep"]))
 
     # K2: every level's map with the real RoI + exact-tap axis weights, f32
     # (the f32 path) and bf16 (the --bf16 path's maps and boxes)

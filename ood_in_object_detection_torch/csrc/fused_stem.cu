@@ -54,12 +54,33 @@
 //   shared memory, so each channel's 8-pixel row segment is one 16-byte
 //   store.
 //
-// f32 (fused_stem_kernel): TF32 is off by contract, so CUDA cores, with
-// register tiling: in conv2 each thread holds 4 pixels x 8 output channels
-// (32 accumulators) and per tap reads 4 h1 values from shared memory and
-// its 8 weights as two float4 loads that every lane of a half-warp shares;
-// in conv1 each thread reads a cell's 27 image values once for 4 channels.
-// The conv1 halo (17^2 cells for 8^2 outputs) costs 13 % extra conv1 work.
+// f32 (fused_stem_f32_kernel): TF32 is off by contract, so CUDA cores.
+// One block of C2 threads per (image, 8x8 output tile); two blocks fit on
+// an SM at yolov8l's widths (~102 KB of shared memory each), so one block's
+// patch copy, conv1 and epilogue overlap the other's conv2.
+// - conv2 is a register-tiled implicit GEMM: M = the tile's 64 pixels,
+//   N = C2, K = 9 C1. A thread holds 8 pixels (one column of the tile) x 8
+//   output channels, 64 accumulators. The conv1 tile is stored cell-major
+//   ([cell][C1 + 4] f32, even and odd columns apart, as in the bf16
+//   kernel), so 4 channels of one cell are one 16-byte load; the 8 lanes
+//   that differ in pixel column read 8 consecutive cells, whose 16-byte
+//   words fall in 8 different bank groups (the pitch is C1 + 4 floats).
+//   Per 4 channels of a tap a thread issues 8 A and 8 B 16-byte loads for
+//   256 FMAs.
+// - B, the folded conv2 weight, is streamed through shared memory in
+//   chunks of one tap row (3 taps) x 8 channels x C2 with a cp.async double
+//   buffer (ops/stem.py:k4_pack_f32 lays each chunk out contiguously), so
+//   every block reads w2 once per tile at full width and the loads stay out
+//   of the FMA chain. The chunk buffers reuse the shared memory of the image
+//   patch and conv1's weights, which are dead once the conv1 tile is built.
+// - conv1: one item = (4 channels, conv1 cell), channels fastest, so a
+//   thread keeps the same 4 channels' 27 x 4 weights in registers over its
+//   items and issues one shared-memory load (an image value the lanes of one
+//   cell share) per 4 FMAs; the result is one 16-byte store. The patch is
+//   copied with 16-byte cp.async groups, zeros outside the image. SiLU uses
+//   the fast exponential and division (a few f32 ulp; the contract's
+//   tolerance is 2e-5 of the map's scale). The conv1 halo (17^2 cells for
+//   8^2 outputs) costs 13 % extra conv1 work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,119 +94,7 @@ constexpr int kTile = 8;                // output pixels per tile side
 constexpr int kH1 = 2 * kTile + 1;      // conv1 cells per tile side (17)
 constexpr int kCells = kH1 * kH1;       // conv1 cells per tile (289)
 constexpr int kImg = 4 * kTile + 3;     // image cells per tile side (35)
-constexpr int kPx = 4;                  // output pixels per thread (along x)
-constexpr int kCo = 8;                  // output channels per thread
-constexpr int kPixelGroups = kTile * kTile / kPx;  // 16
 constexpr int kMaxC2 = 160;
-constexpr int kMaxThreads = kPixelGroups * kMaxC2 / kCo;  // 320
-
-__device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
-
-// block = 2 * C2 threads (16 pixel groups x C2/8 channel groups)
-__global__ void __launch_bounds__(kMaxThreads) fused_stem_kernel(
-    const float* __restrict__ x,       // (B, 3, H, W)
-    const float* __restrict__ w1,  // (27, C1) folded, row (ci, dy, dx)
-    const float* __restrict__ b1,  // (C1)
-    const float* __restrict__ w2,  // (C1, 9, C2) folded
-    const float* __restrict__ b2,  // (C2)
-    int H, int W, int C1, int C2, int tiles_x, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sw1 = reinterpret_cast<float*>(smem_raw);  // [27][C1]
-  float* sb1 = sw1 + 27 * C1;                        // [C1]
-  float* img = sb1 + C1;                             // [3][35][35]
-  float* h1 = img + 3 * kImg * kImg;  // [C1][17][17]
-
-  const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
-  const int oy0 = (blockIdx.x / tiles_x) * kTile, ox0 = (blockIdx.x % tiles_x) * kTile;
-  const int b = blockIdx.y;
-  const int iy0 = 4 * oy0 - 3, ix0 = 4 * ox0 - 3;  // image origin of the patch
-  const int ry0 = 2 * oy0 - 1, rx0 = 2 * ox0 - 1;  // conv1 origin of the tile
-
-  const float* xb = x + static_cast<size_t>(b) * 3 * H * W;
-  for (int i = tid; i < 3 * kImg * kImg; i += nthreads) {
-    const int c = i / (kImg * kImg), r = (i / kImg) % kImg, q = i % kImg;
-    const int gy = iy0 + r, gx = ix0 + q;
-    img[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                 ? xb[(static_cast<size_t>(c) * H + gy) * W + gx]
-                 : 0.0f;
-  }
-  for (int i = tid; i < 27 * C1; i += nthreads) sw1[i] = w1[i];
-  for (int i = tid; i < C1; i += nthreads) sb1[i] = b1[i];
-  __syncthreads();
-
-  // conv1 + BN + SiLU on the 17x17 tile, 4 channels per item; cells outside
-  // the conv1 map are conv2's zero padding
-  const float4* sw1v = reinterpret_cast<const float4*>(sw1);
-  const int g1 = C1 / 4;
-  for (int i = tid; i < g1 * kCells; i += nthreads) {
-    const int g = i / kCells, cell = i % kCells, r = cell / kH1, q = cell % kH1;
-    const int gy = ry0 + r, gx = rx0 + q;
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (gy >= 0 && gy < H2 && gx >= 0 && gx < W2) {
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int ci = 0; ci < 3; ++ci)
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const float xv = img[(ci * kImg + 2 * r + dy) * kImg + 2 * q + dx];
-            const float4 wv = sw1v[((ci * 3 + dy) * 3 + dx) * g1 + g];
-            acc[0] = fmaf(xv, wv.x, acc[0]);
-            acc[1] = fmaf(xv, wv.y, acc[1]);
-            acc[2] = fmaf(xv, wv.z, acc[2]);
-            acc[3] = fmaf(xv, wv.w, acc[3]);
-          }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) v[k] = silu(acc[k] + sb1[4 * g + k]);
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) h1[(4 * g + k) * kCells + cell] = v[k];
-  }
-  __syncthreads();
-
-  // conv2 + BN + SiLU: thread = (4 pixels along x, 8 channels)
-  const int pg = tid % kPixelGroups, cg = tid / kPixelGroups;
-  const int py = pg / (kTile / kPx), px0 = (pg % (kTile / kPx)) * kPx;
-  float acc[kPx][kCo];
-#pragma unroll
-  for (int k = 0; k < kPx; ++k)
-#pragma unroll
-    for (int j = 0; j < kCo; ++j) acc[k][j] = 0.0f;
-  const float* wg = w2 + cg * kCo;
-  for (int c = 0; c < C1; ++c) {
-    const float* hc = h1 + c * kCells + (2 * py) * kH1 + 2 * px0;
-    const float* wc = wg + static_cast<size_t>(c) * 9 * C2;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const float4* wv = reinterpret_cast<const float4*>(wc + (dy * 3 + dx) * C2);
-        const float4 a = __ldg(wv), e = __ldg(wv + 1);
-        const float wr[kCo] = {a.x, a.y, a.z, a.w, e.x, e.y, e.z, e.w};
-#pragma unroll
-        for (int k = 0; k < kPx; ++k) {
-          const float hv = hc[dy * kH1 + dx + 2 * k];
-#pragma unroll
-          for (int j = 0; j < kCo; ++j) acc[k][j] = fmaf(hv, wr[j], acc[k][j]);
-        }
-      }
-  }
-  const int oy = oy0 + py;
-  if (oy >= H4) return;
-#pragma unroll
-  for (int j = 0; j < kCo; ++j) {
-    const int co = cg * kCo + j;
-    const float bias = b2[co];
-    float* orow = out + ((static_cast<size_t>(b) * C2 + co) * H4 + oy) * W4;
-#pragma unroll
-    for (int k = 0; k < kPx; ++k) {
-      const int ox = ox0 + px0 + k;
-      if (ox < W4) orow[ox] = silu(acc[k][j] + bias);
-    }
-  }
-}
 
 // ---- bf16: both convolutions on tensor cores ------------------------------
 //
@@ -573,32 +482,224 @@ int launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, 
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_f32(const void* x, const float* w1, const float* b1, const float* w2, const float* b2,
+// ---- f32: CUDA cores, register-tiled --------------------------------------
+//
+// Operands, packed by ops/stem.py:k4_pack_f32 (BN folded, f32):
+//   w1   [27][C1]                 row (ci, dy, dx)
+//   b1   [C1]
+//   w2p  [C1/8][3 dy][3 dx][8][C2]  W2[(dy, dx)][c][n], c = 8 c8 + the 4th index:
+//        chunk (c8, dy), 24 rows of C2, is contiguous
+//   b2   [C2]
+
+constexpr int kPx32 = kTile;           // output pixels per thread: one column of the tile
+constexpr int kCo32 = 8;               // output channels per thread
+constexpr int kKc32 = 8;               // conv1 channels per B chunk
+constexpr int kChunkRows = 3 * kKc32;  // B rows per chunk: one tap row (3 taps) x 8 channels
+
+__device__ __forceinline__ void cp_async16_zfill(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Shared memory of one f32 block, in floats: the conv1 tile, then the
+// image patch and w1 (conv1) or the two B chunks (conv2) in one region,
+// then the biases
+__host__ __device__ inline int stem32_union_floats(int c1, int c2) {
+  const int conv1 = 3 * kPatchPlane + 27 * c1;
+  const int conv2 = 2 * kChunkRows * c2;
+  return conv1 > conv2 ? conv1 : conv2;
+}
+__host__ __device__ inline size_t stem32_smem_bytes(int c1, int c2) {
+  return (static_cast<size_t>(kCells) * (c1 + 4) + stem32_union_floats(c1, c2) + c1 + c2) *
+         sizeof(float);
+}
+
+// block = C2 threads, one (image, 8x8 output tile); thread t: pixel column
+// g = t % 8, output channels 8 (t / 8) .. + 7
+__global__ void __launch_bounds__(kMaxC2, 2) fused_stem_f32_kernel(
+    const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w2p, const float* __restrict__ b2, int H, int W, int C1, int C2,
+    int tiles_x, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int pitch = C1 + 4;  // floats per conv1 cell
+  float* h1 = reinterpret_cast<float*>(smem_raw);  // [289 slots][pitch]
+  float* region = h1 + kCells * pitch;
+  float* patch = region;                           // [3][35][40] (conv1)
+  float* sw1 = patch + 3 * kPatchPlane;            // [27][C1]    (conv1)
+  float* bst = region;                             // [2][24][C2] (conv2)
+  float* sb1 = region + stem32_union_floats(C1, C2);
+  float* sb2 = sb1 + C1;
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
+  const int oy0 = (blockIdx.x / tiles_x) * kTile, ox0 = (blockIdx.x % tiles_x) * kTile;
+  const int b = blockIdx.y;
+  const int ry0 = 2 * oy0 - 1, rx0 = 2 * ox0 - 1;  // conv1 origin of the tile
+
+  {  // image rows 4 oy0 - 3 .., columns 4 ox0 - 4 .. + 39 (the 35 needed start
+     // at column 1); W is a multiple of 4, so a 16-byte group is in or out
+    const int iy0 = 4 * oy0 - 3, cx0 = 4 * ox0 - 4;
+    const float* xb = x + static_cast<size_t>(b) * 3 * H * W;
+    constexpr int kCols4 = kPatchW / 4;
+    for (int i = tid; i < 3 * kImg * kCols4; i += nthreads) {
+      const int c = i / (kImg * kCols4), r = (i / kCols4) % kImg, j = i % kCols4;
+      const int gy = iy0 + r, gx = cx0 + 4 * j;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const float* src = in ? xb + (static_cast<size_t>(c) * H + gy) * W + gx : x;
+      cp_async16_zfill(smem_addr(patch + (c * kImg + r) * kPatchW + 4 * j), src, in ? 16 : 0);
+    }
+    for (int i = tid; i < 27 * C1 / 4; i += nthreads)
+      cp_async16_zfill(smem_addr(sw1 + 4 * i), w1 + 4 * i, 16);
+    cp_async_commit();
+    for (int i = tid; i < C1; i += nthreads) sb1[i] = b1[i];
+    for (int i = tid; i < C2; i += nthreads) sb2[i] = b2[i];
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+  // conv1 + BN + SiLU -> h1, one (4 channels, cell) per item, items
+  // channel-fastest: a thread's items share their 4 channels whenever the
+  // block's thread count is a multiple of C1 / 4 (always at the YOLOv8
+  // widths), so it holds their 27 x 4 weights in registers and reads one
+  // image value per tap, which the lanes on the same cell share. Cells
+  // outside the conv1 map are conv2's zero padding.
+  {
+    const int nq4 = C1 / 4;
+    int wq = -1;
+    float4 wr[27];
+    for (int i = tid; i < nq4 * kCells; i += nthreads) {
+      const int cell = i / nq4, q4 = i - cell * nq4, r = cell / kH1, q = cell - r * kH1;
+      if (q4 != wq) {
+#pragma unroll
+        for (int k = 0; k < 27; ++k)
+          wr[k] = *reinterpret_cast<const float4*>(sw1 + k * C1 + 4 * q4);
+        wq = q4;
+      }
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (ry0 + r >= 0 && ry0 + r < H2 && rx0 + q >= 0 && rx0 + q < W2) {
+        // the cell's 27 image values, all loaded before the products
+        const float* px = patch + 2 * r * kPatchW + 2 * q + 1;
+        float xv[27];
+#pragma unroll
+        for (int k = 0; k < 27; ++k)
+          xv[k] = px[((k / 9) * kImg + (k % 9) / 3) * kPatchW + k % 3];
+        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 27; ++k) {
+          a0 = fmaf(xv[k], wr[k].x, a0);
+          a1 = fmaf(xv[k], wr[k].y, a1);
+          a2 = fmaf(xv[k], wr[k].z, a2);
+          a3 = fmaf(xv[k], wr[k].w, a3);
+        }
+        const float* bb = sb1 + 4 * q4;
+        v = make_float4(silu_fast(a0 + bb[0]), silu_fast(a1 + bb[1]), silu_fast(a2 + bb[2]),
+                        silu_fast(a3 + bb[3]));
+      }
+      *reinterpret_cast<float4*>(h1 + (r * kH1 + (q & 1) * (kTile + 1) + (q >> 1)) * pitch +
+                                 4 * q4) = v;
+    }
+  }
+  __syncthreads();  // h1 complete; the patch and w1 are dead
+
+  // conv2 + BN + SiLU: K in chunks (c8, dy) of 3 taps x 8 channels
+  const int g = tid % kPx32, n0 = (tid / kPx32) * kCo32;
+  const int chunk_floats = kChunkRows * C2;
+  const int nq = (C1 / kKc32) * 3;
+  auto load_chunk = [&](int q) {
+    const float* src = w2p + static_cast<size_t>(q) * chunk_floats;
+    float* dst = bst + (q & 1) * chunk_floats;
+    for (int i = tid; i < chunk_floats / 4; i += nthreads)
+      cp_async16_zfill(smem_addr(dst + 4 * i), src + 4 * i, 16);
+    cp_async_commit();
+  };
+  float acc[kPx32][kCo32];
+#pragma unroll
+  for (int p = 0; p < kPx32; ++p)
+#pragma unroll
+    for (int j = 0; j < kCo32; ++j) acc[p][j] = 0.0f;
+  load_chunk(0);
+  for (int q = 0; q < nq; ++q) {
+    if (q + 1 < nq) {
+      load_chunk(q + 1);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();  // chunk q landed
+    const float* bs = bst + (q & 1) * chunk_floats + n0;
+    const int c8 = q / 3, dy = q - 3 * c8;
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      // pixel (p, g) reads conv1 cell (2 p + dy, 2 g + dx): slot
+      // (2 p + dy) 17 + (dx & 1) 9 + g + (dx >> 1)
+      const float* ap = h1 + (dy * kH1 + (dx & 1) * (kTile + 1) + (dx >> 1) + g) * pitch + 8 * c8;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float4 a[kPx32];
+#pragma unroll
+        for (int p = 0; p < kPx32; ++p)
+          a[p] = *reinterpret_cast<const float4*>(ap + 2 * p * kH1 * pitch + 4 * half);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* brow = bs + (dx * kKc32 + 4 * half + kk) * C2;
+          const float4 ba = *reinterpret_cast<const float4*>(brow);
+          const float4 bb = *reinterpret_cast<const float4*>(brow + 4);
+          const float bv[kCo32] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+          for (int p = 0; p < kPx32; ++p) {
+            const float av = kk == 0 ? a[p].x : kk == 1 ? a[p].y : kk == 2 ? a[p].z : a[p].w;
+#pragma unroll
+            for (int j = 0; j < kCo32; ++j) acc[p][j] = fmaf(av, bv[j], acc[p][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with chunk q's buffer
+  }
+
+  const int ox = ox0 + g;
+  if (ox >= W4) return;
+#pragma unroll
+  for (int j = 0; j < kCo32; ++j) {
+    const int co = n0 + j;
+    const float bias = sb2[co];
+    float* ocol = out + (static_cast<size_t>(b) * C2 + co) * H4 * W4 + ox;
+#pragma unroll
+    for (int p = 0; p < kPx32; ++p)
+      if (oy0 + p < H4) ocol[static_cast<size_t>(oy0 + p) * W4] = silu_fast(acc[p][j] + bias);
+  }
+}
+
+int launch_f32(const void* x, const float* w1, const float* b1, const float* w2p, const float* b2,
                int batch, int H, int W, int C1, int C2, void* out, cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w1) % 16 ||
+      reinterpret_cast<uintptr_t>(w2p) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const int tiles_y = (H / 4 + kTile - 1) / kTile, tiles_x = (W / 4 + kTile - 1) / kTile;
-  const size_t smem = (28 * static_cast<size_t>(C1) + 3 * kImg * kImg) * sizeof(float) +
-                      static_cast<size_t>(C1) * kCells * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_stem_kernel,
+  const size_t smem = stem32_smem_bytes(C1, C2);
+  cudaError_t err = cudaFuncSetAttribute(fused_stem_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(tiles_y * tiles_x), static_cast<unsigned>(batch));
-  const int threads = kPixelGroups * C2 / kCo;
-  fused_stem_kernel<<<grid, threads, smem, s>>>(static_cast<const float*>(x), w1, b1, w2, b2, H,
-                                                W, C1, C2, tiles_x, static_cast<float*>(out));
+  fused_stem_f32_kernel<<<grid, C2, smem, s>>>(static_cast<const float*>(x), w1, b1, w2p, b2, H,
+                                               W, C1, C2, tiles_x, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// f32 (bf16 == 0): x, out float; w1 (27, C1), b1, w2 (C1, 9, C2), b2 f32
-// (ops/stem.py:k4_weights). bf16 (bf16 != 0): x, out __nv_bfloat16; w1, b1,
+// f32 (bf16 == 0): x, out float; w1, b1, w2, b2 the operands of
+// ops/stem.py:k4_pack_f32. bf16 (bf16 != 0): x, out __nv_bfloat16; w1, b1,
 // w2, b2 the packed operands of ops/stem.py:k4_pack_bf16 (see above).
 extern "C" int fused_stem_launch(const void* x, const void* w1, const float* b1,
                                  const void* w2, const float* b2, int batch, int H, int W,
                                  int C1, int C2, int bf16, void* out, void* stream) {
   if (batch <= 0 || H <= 0 || W <= 0) return 0;
-  if (H % 4 || W % 4 || C1 <= 0 || C1 % 8 || C1 > (bf16 ? 80 : 128) || C2 <= 0 || C2 % kCo ||
+  if (H % 4 || W % 4 || C1 <= 0 || C1 % 8 || C1 > (bf16 ? 80 : 128) || C2 <= 0 || C2 % 8 ||
       C2 > kMaxC2 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -610,3 +711,4 @@ extern "C" int fused_stem_launch(const void* x, const void* w1, const float* b1,
 extern "C" const char* fused_stem_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+

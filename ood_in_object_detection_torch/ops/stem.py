@@ -14,7 +14,8 @@ which the JAX model runs on every inference forward, models/yolo.py:398-431).
 - :func:`fused_stem` launches CUDA kernel K4 (``csrc/fused_stem.cu``) on CUDA
   tensors and runs :func:`fused_stem_plain` on CPU tensors; in bf16 the
   kernel runs on tensor cores and takes its weights in mma fragment order
-  (:func:`k4_pack_bf16`), in f32 it runs on CUDA cores. K4 computes the
+  (:func:`k4_pack_bf16`), in f32 it runs on CUDA cores on conv2 weights
+  regrouped into the chunks it streams (:func:`k4_pack_f32`). K4 computes the
   contract of pallas_stem: BN folded into the weights in f32
   (:func:`bn_fold`, stem.py:56-59), the folded weights and the image rounded
   to the compute dtype, f32 accumulation, f32 bias and SiLU, the conv1
@@ -205,12 +206,26 @@ def k4_pack_bf16(w1, bn1, w2, bn2):
             src[i2].view(c2 // 8, 9, c1p // 16, 32, 4), b2.contiguous())
 
 
+def k4_pack_f32(w1, bn1, w2, bn2):
+    """K4's f32 operands: :func:`k4_weights` in f32, with conv2's weight
+    regrouped into the chunks the kernel streams through shared memory:
+
+    - w1 f32 (27, C1), b1 f32 (C1,), b2 f32 (C2,) as in :func:`k4_weights`;
+    - w2p f32 (C1/8, 3, 3, 8, C2): ``w2p[c8, dy, dx, cc, n]`` is the folded
+      weight of input channel 8 c8 + cc, tap (dy, dx), output channel n, so
+      a chunk (c8, dy), 3 taps x 8 channels x C2, is contiguous."""
+    w1k, b1, w2k, b2 = k4_weights(w1, bn1, w2, bn2, torch.float32)
+    c1, _, c2 = w2k.shape
+    w2p = w2k.reshape(c1 // 8, 8, 3, 3, c2).permute(0, 2, 3, 1, 4).contiguous()
+    return w1k, b1, w2p, b2
+
+
 def k4_operands(w1, bn1, w2, bn2, dtype: torch.dtype):
-    """What K4's launcher takes in ``dtype``: :func:`k4_weights` in f32,
+    """What K4's launcher takes in ``dtype``: :func:`k4_pack_f32` in f32,
     :func:`k4_pack_bf16` in bf16."""
     if dtype == torch.bfloat16:
         return k4_pack_bf16(w1, bn1, w2, bn2)
-    return k4_weights(w1, bn1, w2, bn2, dtype)
+    return k4_pack_f32(w1, bn1, w2, bn2)
 
 
 def check_k4_shapes(x_shape, c1: int, c2: int) -> None:

@@ -32,20 +32,37 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,k", [(8, 1024), (2, 189), (1, 4096)])
-def test_nms_keep_kernel_matches_plain(dev, b, k):
+@pytest.mark.parametrize("b,k,kind", [(8, 1024, "random"), (2, 189, "random"), (1, 4096, "random"),
+                                      (2, 64, "random"), (3, 65, "random"),
+                                      (8, 1024, "all_invalid"), (8, 1024, "single_valid"),
+                                      (8, 1024, "prefix_valid"), (8, 1024, "chain"),
+                                      (1, 4096, "all_valid"), (2, 65, "chain")])
+def test_nms_keep_kernel_matches_plain(dev, b, k, kind):
+    """Bit-equal keep masks; validity random, none, one box, a prefix (the
+    main path's), all; ``chain``: greedy keeps every second box."""
     rng = np.random.default_rng(k)
     c = rng.uniform(0, 640, (b, k, 2))
     wh = rng.uniform(5, 200, (b, k, 2))
     cls = rng.integers(0, 3, (b, k))
     boxes = np.concatenate([c - wh / 2, c + wh / 2], -1) + (cls * N.MAX_WH)[..., None]
+    valid = {"random": rng.uniform(size=(b, k)) > 0.2, "all_invalid": np.zeros((b, k), bool),
+             "single_valid": np.arange(k)[None].repeat(b, 0) == rng.integers(0, k, (b, 1)),
+             "prefix_valid": np.arange(k)[None] < rng.integers(1, k, (b, 1)),
+             "all_valid": np.ones((b, k), bool)}.get(kind)
+    if kind == "chain":
+        from ood_in_object_detection_torch.scripts.bench_k1_k4 import chain_boxes
+
+        boxes, valid = chain_boxes(b, k)
     boxes = torch.tensor(boxes, dtype=torch.float32, device=dev)
-    valid = torch.tensor(rng.uniform(size=(b, k)) > 0.2, device=dev)
+    valid = torch.tensor(valid, device=dev)
     before = N.greedy_keep.launches
     got = N.greedy_keep(boxes, valid, 0.7)
     assert N.greedy_keep.launches == before + 1
     torch.cuda.synchronize()
-    assert torch.equal(got, N.greedy_keep_plain(boxes, valid, 0.7))
+    ref = N.greedy_keep_plain(boxes, valid, 0.7)
+    assert torch.equal(got, ref)
+    if kind == "chain":
+        assert torch.equal(ref, (torch.arange(k, device=dev) % 2 == 0).expand(b, k))
 
 
 @pytest.mark.parametrize("b,h,w,c,n2", [(8, 80, 80, 256, 600), (8, 40, 40, 512, 600),
@@ -245,6 +262,31 @@ def test_fused_stem_kernel_corner_impulse(dev, dtype):
     ref = S.fused_stem_plain(x, *params, dtype).float()
     tol_plain, tol_contract = STEM_TOL[dtype]
     scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol_plain * scale
+    assert float((got - k4_contract(x, *params, dtype).float()).abs().max()) <= tol_contract * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c1", [64, 80])
+@pytest.mark.parametrize("case", ["partial_tiles", "corner_impulse"])
+def test_fused_stem_kernel_widest(dev, case, c1, dtype):
+    """yolov8l's and the widest stem (C1 80, C2 160: the largest chunks of
+    streamed weights in f32, the sliced C2 in bf16) on a batch of 3 whose
+    tiles are partial (H/4 = 25, W/4 = 17: 12 tiles per image, 36 in all),
+    and on the corner impulse."""
+    params = stem_params(c1 + 7, c1, 2 * c1, dev)
+    if case == "partial_tiles":
+        x = torch.tensor(np.random.default_rng(c1).uniform(0, 1, (3, 3, 100, 68)),
+                         dtype=torch.float32, device=dev)
+    else:
+        x = torch.zeros((1, 3, 32, 32), device=dev)
+        x[0, 0, 0, 0] = 5.0
+    got = S.fused_stem(x, *stem_convs(params), dtype).float()
+    torch.cuda.synchronize()
+    ref = S.fused_stem_plain(x, *params, dtype).float()
+    tol_plain, tol_contract = STEM_TOL[dtype]
+    scale = float(ref.abs().max())
+    assert got.shape == (x.shape[0], 2 * c1, x.shape[2] // 4, x.shape[3] // 4)
     assert float((got - ref).abs().max()) <= tol_plain * scale
     assert float((got - k4_contract(x, *params, dtype).float()).abs().max()) <= tol_contract * scale
 

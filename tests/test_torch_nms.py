@@ -163,3 +163,91 @@ def test_fused_matches_full_anchor_decode():
     np.testing.assert_array_equal(fused.det.anchor_idx.numpy(), full.anchor_idx.numpy())
     np.testing.assert_array_equal(fused.det.valid.numpy(), full.valid.numpy())
     np.testing.assert_allclose(fused.det.boxes.numpy(), full.boxes.numpy(), rtol=1e-5, atol=2e-3)
+
+
+# K1's blocked design (csrc/nms_keep.cu), emulated: the mask phase by
+# (row block, column block) pairs of the upper triangle, skipping pairs and
+# rows/columns without a valid box, and the sweep by blocks of 64 boxes,
+# each block's diagonal resolved in bits and its kept rows ORed into the
+# removed words right of the diagonal.
+
+def _k1_mask_words(boxes, valid, thr):
+    """(k, nw) python-int words as nms_mask_kernel writes them (words left
+    of the diagonal block are never written: None)."""
+    k = boxes.shape[0]
+    nw = -(-k // 64)
+    words = [[None] * nw for _ in range(k)]
+    for rb in range(nw):
+        rows = range(64 * rb, min(k, 64 * rb + 64))
+        for cb in range(rb, nw):
+            c0, c1 = 64 * cb, min(k, 64 * cb + 64)
+            if not (valid[list(rows)].any() and valid[c0:c1].any()):
+                for r in rows:
+                    words[r][cb] = 0
+                continue
+            sup = (box_iou(boxes[list(rows)], boxes[c0:c1]) > thr).numpy()
+            for i, r in enumerate(rows):
+                bits = 0
+                if valid[r]:
+                    for j in range(c1 - c0):
+                        if c0 + j > r and valid[c0 + j] and sup[i, j]:
+                            bits |= 1 << j
+                words[r][cb] = bits
+    return words
+
+
+def _k1_blocked_sweep(words, valid):
+    """nms_sweep_kernel on one image: -> (k,) bool keep mask."""
+    k, nw = len(words), len(words[0])
+    vbits = [sum(int(valid[64 * w + j]) << j for j in range(min(64, k - 64 * w)))
+             for w in range(nw)]
+    nb = max((w + 1 for w in range(nw) if vbits[w]), default=0)
+    removed = [0] * nw
+    keep = np.zeros(k, bool)
+    for i in range(nb):
+        rem, kept = removed[i], 0
+        for r in range(min(64, k - 64 * i)):
+            if (vbits[i] >> r) & 1 and not (rem >> r) & 1:
+                kept |= 1 << r
+                rem |= words[64 * i + r][i]
+                keep[64 * i + r] = True
+        for w in range(i + 1, nb):  # later words hold no valid box
+            for r in range(64):
+                if (kept >> r) & 1:
+                    removed[w] |= words[64 * i + r][w]
+    return keep
+
+
+def _k1_case(kind, k):
+    rng = np.random.default_rng(k + len(kind))
+    if kind == "chain":
+        from ood_in_object_detection_torch.scripts.bench_k1_k4 import chain_boxes
+
+        boxes, valid = chain_boxes(1, k)
+        return boxes[0].astype(np.float32), valid[0]
+    boxes, valid = _controlled_boxes(rng, 1, k)
+    boxes, valid = boxes[0], valid[0]
+    if kind == "random":
+        c, wh = rng.uniform(0, 640, (k, 2)), rng.uniform(5, 200, (k, 2))
+        boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+        valid = rng.uniform(size=k) > 0.2
+    elif kind == "all_valid":
+        valid = np.ones(k, bool)
+    elif kind == "all_invalid":
+        valid = np.zeros(k, bool)
+    elif kind == "prefix_valid":
+        valid = np.arange(k) < (3 * k) // 5 + 1
+    return boxes, valid  # "nonprefix_valid": the random 90 % of _controlled_boxes
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 189, 1024])
+@pytest.mark.parametrize("kind", ["random", "all_valid", "all_invalid", "prefix_valid",
+                                  "nonprefix_valid", "chain"])
+def test_k1_blocked_sweep_matches_plain(kind, k):
+    boxes, valid = _k1_case(kind, k)
+    keep = _k1_blocked_sweep(_k1_mask_words(torch.from_numpy(boxes), valid, IOU), valid)
+    ref = tnms.greedy_keep_plain(torch.from_numpy(boxes)[None], torch.from_numpy(valid)[None],
+                                 IOU)[0].numpy()
+    np.testing.assert_array_equal(keep, ref)
+    if kind == "chain":  # greedy keeps every second box; one pass would keep one
+        np.testing.assert_array_equal(ref, np.arange(k) % 2 == 0)

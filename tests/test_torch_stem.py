@@ -312,7 +312,106 @@ def test_k4_packed_emulation_matches_plain_bf16(c1, c2, hw):
 
 
 def test_k4_operands_f32_are_k4_weights():
+    """In f32 the launcher takes k4_pack_f32: k4_weights' values, conv2's
+    weight regrouped into (C1/8, 3, 3, 8, C2) chunks."""
     params = _torch_params(*_params(6, 16, 32))
-    for got, want in zip(S.k4_operands(*params, torch.float32),
-                         S.k4_weights(*params, torch.float32)):
-        assert torch.equal(got, want)
+    got = S.k4_operands(*params, torch.float32)
+    want = S.k4_weights(*params, torch.float32)
+    for i in (0, 1, 3):
+        assert torch.equal(got[i], want[i])
+    assert torch.equal(got[2], S.k4_pack_f32(*params)[2])
+    assert torch.equal(got[2].permute(0, 3, 1, 2, 4).reshape(16, 9, 32), want[2])
+
+
+@pytest.mark.parametrize("c1,c2", [(16, 32), (24, 48), (64, 128), (80, 160)])
+def test_k4_pack_f32_unpacks_to_k4_weights(c1, c2):
+    """Every element of the f32 kernel's streamed chunks is k4_weights'
+    folded conv2 weight of its (input channel, tap, output channel)."""
+    w1, bn1, w2, bn2 = _torch_params(*_params(c1 + c2 + 1, c1, c2))
+    w1k, b1, w2k, b2 = S.k4_weights(w1, bn1, w2, bn2, torch.float32)
+    p1, pb1, w2p, pb2 = S.k4_pack_f32(w1, bn1, w2, bn2)
+    assert w2p.shape == (c1 // 8, 3, 3, 8, c2) and w2p.is_contiguous()
+    assert w2p.dtype == p1.dtype == torch.float32
+    for i in (0, 1, 3):
+        assert torch.equal((p1, pb1, w2p, pb2)[i], (w1k, b1, w2k, b2)[i])
+    wp, wk = w2p.numpy(), w2k.numpy()
+    for c in range(c1):
+        for dy in range(3):
+            for dx in range(3):
+                np.testing.assert_array_equal(wp[c // 8, dy, dx, c % 8], wk[c, 3 * dy + dx])
+    # a chunk (c8, dy) is 24 consecutive rows of C2: rows dx * 8 + c % 8
+    flat = w2p.reshape(-1, c2)
+    assert torch.equal(flat[(1 * 3 + 2) * 24 + 1 * 8 + 5], w2k[1 * 8 + 5, 3 * 2 + 1])
+
+
+def _k4_f32_tile_emulation(x, w1, b1, w2p, b2):
+    """The f32 kernel's indexing on the CPU (csrc/fused_stem.cu,
+    fused_stem_f32_kernel): per (image, 8x8 output tile) the image patch
+    from rows 4 oy0 - 3 and columns 4 ox0 - 4 (zeros outside the image),
+    conv1 cell (r, q) from patch[ci, 2 r + dy, 2 q + dx + 1] into slot
+    17 r + 9 (q & 1) + (q >> 1) (zero outside the conv1 map), then each
+    thread's 8 pixels (p, g) x 8 channels summed over the chunks (c8, dy) of
+    w2p: slot (2 p + dy) 17 + 9 (dx & 1) + (dx >> 1) + g, B row dx 8 + cc.
+    Sums in f64."""
+    xb = x.double().numpy()
+    w1, b1, w2p, b2 = (t.double().numpy() for t in (w1, b1, w2p, b2))
+    bsz, _, h, w = xb.shape
+    c1, c2 = w1.shape[1], w2p.shape[-1]
+    h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
+    out = np.zeros((bsz, c2, h4, w4))
+    r = np.arange(17)[:, None, None]
+    q = np.arange(17)[None, :, None]
+    k = np.arange(27)[None, None, :]
+    ci, rows, cols = np.broadcast_arrays(k // 9, 2 * r + (k % 9) // 3, 2 * q + k % 3 + 1)
+    slot = (np.arange(17)[:, None] * 17 + (np.arange(17) & 1) * 9 + (np.arange(17) >> 1)).ravel()
+    p, g = np.arange(8)[:, None], np.arange(8)[None, :]
+    silu = lambda v: v / (1 + np.exp(-v))  # noqa: E731
+    for b in range(bsz):
+        for oy0 in range(0, h4, 8):
+            for ox0 in range(0, w4, 8):
+                padded = np.zeros((3, h + 40, w + 40))
+                padded[:, 3:3 + h, 4:4 + w] = xb[b]
+                patch = padded[:, 4 * oy0:4 * oy0 + 35, 4 * ox0:4 * ox0 + 40]
+                cell = silu(patch[ci, rows, cols] @ w1 + b1)             # (17, 17, C1)
+                gy, gx = 2 * oy0 - 1 + np.arange(17), 2 * ox0 - 1 + np.arange(17)
+                inside = ((gy >= 0) & (gy < h2))[:, None] & ((gx >= 0) & (gx < w2))[None, :]
+                cell *= inside[..., None]
+                s = np.zeros((289, c1))
+                s[slot] = cell.reshape(289, c1)
+                acc = np.zeros((8, 8, c2))
+                for qi in range(3 * c1 // 8):
+                    c8, dy = divmod(qi, 3)
+                    for dx in range(3):
+                        idx = (2 * p + dy) * 17 + (dx & 1) * 9 + (dx >> 1) + g
+                        acc += s[idx, 8 * c8:8 * c8 + 8] @ w2p[c8, dy, dx]
+                tile = silu(acc + b2).transpose(2, 0, 1)                   # (C2, p, g)
+                ny, nx = min(8, h4 - oy0), min(8, w4 - ox0)
+                out[b, :, oy0:oy0 + ny, ox0:ox0 + nx] = tile[:, :ny, :nx]
+    return torch.from_numpy(out).float()
+
+
+@pytest.mark.parametrize("c1,c2,hw", [(16, 32, (40, 40)), (24, 48, (48, 36))])
+def test_k4_f32_tile_emulation_matches_plain(c1, c2, hw):
+    """The f32 kernel's tile, slot and chunk indexing, emulated on the CPU,
+    gives the stem within the CUDA tests' f32 tolerance (2e-5 of the map's
+    scale) against the plain version and k4_contract, partial tiles
+    included (H/4 or W/4 not a multiple of 8)."""
+    params = _torch_params(*_params(c1 + hw[1], c1, c2))
+    x = torch.from_numpy(np.random.default_rng(hw[0]).uniform(0, 1, (2, 3, *hw)).astype(np.float32))
+    got = _k4_f32_tile_emulation(x, *S.k4_pack_f32(*params))
+    ref = S.fused_stem_plain(x, *params, torch.float32)
+    scale = float(ref.abs().max())
+    assert got.shape == ref.shape == (2, c2, hw[0] // 4, hw[1] // 4)
+    assert float((got - ref).abs().max()) <= 2e-5 * scale
+    assert float((got - k4_contract(x, *params, torch.float32)).abs().max()) <= 2e-5 * scale
+
+
+def test_profile_k4_f32_instruments_every_phase():
+    """scripts/profile_k4_f32.py finds each of its anchors in the f32
+    kernel once: five clock64 probes, start to output."""
+    from ood_in_object_detection_torch.scripts.profile_k4_f32 import instrumented_source
+
+    src = instrumented_source(3200)
+    assert src.count("clock64()") == 5
+    assert all(f"pr_[{i}] = clock64()" in src for i in range(5))
+    assert 'extern "C" int profile_read' in src
