@@ -29,17 +29,19 @@ script exits non-zero without printing a result):
 6. profile, profile_bf16: device time of the predict step by kernel
    (torch.profiler).
 7. kernels: each kernel against its plain PyTorch version on the card, on
-   tensors captured from the main paths (plus controlled, chain and
-   k = 4096 NMS cases, a K=5 centroid bank with empty groups, yolov8n's
-   stem widths and a corner impulse for the stem), with times from CUDA
-   events, the least time the card could take (bound_ms) and one PyTorch
-   call computing the same function where there is one (library_ms). K1
-   also gets each case's device time per phase, mask and sweep
-   (torch.profiler, phase_ms) and valid candidates per image; K2 gets Q
-   built from wx and wy plus torch.bmm (library_with_q_ms) and, per level,
-   the count of non-empty rows and the median, p99 and largest support
-   rectangle; K4 gets the launcher alone on operands folded once
-   (kernel_ms).
+   tensors captured from the main paths (plus controlled, chain, k = 4096,
+   (2, 8400) and k = 16384 NMS cases, K 5 and K 200 centroid banks with
+   masked centroids and empty groups, yolov8n's stem widths and a corner
+   impulse for the stem), with times from CUDA events, the least time the
+   card could take (bound_ms) and one PyTorch call computing the same
+   function where there is one (library_ms). K1 also gets each case's
+   device time per phase, mask and sweep (torch.profiler, phase_ms) and
+   valid candidates per image; K2 and K3 their device time beside the
+   wrapper's (device_ms); K3 each case's times and cuBLAS's x @ C.T plus
+   the masked minimum (cublas_amin_ms); K2 gets Q built from wx and wy plus
+   torch.bmm (library_with_q_ms) and, per level, the count of non-empty
+   rows and the median, p99 and largest support rectangle; K4 gets the
+   launcher alone on operands folded once (kernel_ms).
 8. stem_parts (the stem probe ladder's path): the ladder entry point
    (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
    driven through all four ladders at full size, z (128, 160(+2), 160, 48)
@@ -418,8 +420,10 @@ def support_cells(torch, wx, wy):
 def roi_entry(torch, R, name, replaces, out, launches, tol):
     """K2 on every level's map with the real RoI + exact-tap axis weights of
     ``out``; against the plain version, torch.bmm of a materialised Q, and
-    building Q from wx and wy plus torch.bmm. Per level, the count of
-    non-empty rows and their support rectangles (cells)."""
+    building Q from wx and wy plus torch.bmm; the wrapper's time (``ms``,
+    three levels, host included) and its device time (``device_ms``,
+    torch.profiler). Per level, the count of non-empty rows and their
+    support rectangles (cells)."""
     level_args, err, off, moved, ops, qs = [], 0.0, 0, 0, 0.0, []
     kind = "bf16" if out.neck[0].dtype == torch.bfloat16 else "f32"
     for f in out.neck:
@@ -457,9 +461,12 @@ def roi_entry(torch, R, name, replaces, out, launches, tol):
             q = (wy[..., :, None] * wx[..., None, :]).reshape(b, -1, h * w).to(f.dtype)
             torch.bmm(q, f.reshape(b, h * w, c))
 
+    from ood_in_object_detection_torch.scripts.bench_k3 import device_ms
+
     return dict(name=name, route="cuda", source="ood_in_object_detection_torch/csrc/roi_contract.cu",
                 replaces=replaces, launches=launches, max_abs_err=err,
                 ms=cuda_ms(lambda: [R.roi_contract(*a) for a in level_args]),
+                device_ms=device_ms(lambda: [R.roi_contract(*a) for a in level_args], 20),
                 plain_ms=cuda_ms(lambda: [R.roi_contract_plain(*a) for a in level_args]),
                 **bound(moved, ops, kind),
                 library_ms=cuda_ms(lambda: [torch.bmm(q, f) for q, f in qs]),
@@ -471,9 +478,10 @@ def roi_entry(torch, R, name, replaces, out, launches, tol):
 
 def nms_entry(torch, N, shifted, valid, launches):
     """K1 on the main path's (8, 1024) candidates, on controlled boxes at
-    k = 1024, on a chain (greedy keeps every second box) and on 4096 valid
-    boxes: keep masks bit-equal to the plain version, the wrapper's time and
-    each case's device time per phase (mask, sweep; torch.profiler)."""
+    k = 1024, on a chain (greedy keeps every second box), on 4096 and 16384
+    valid boxes and on (2, 8400) (640 px's anchor count):
+    keep masks bit-equal to the plain version, the wrapper's time and each
+    case's device time per phase (mask, sweep; torch.profiler)."""
     from ood_in_object_detection_torch.scripts import bench_k1_k4 as BK
 
     cases = {"main_path": (shifted, valid)}
@@ -610,7 +618,6 @@ def stem_entry(torch, S, det, images, launches):
 
 
 def phase_kernels(torch, det, det16, dist_method, images, launches, launches16):
-    from ood_in_object_detection_torch.ood import distance as D
     from ood_in_object_detection_torch.ood.pipeline import distance_features
     from ood_in_object_detection_torch.ops import nms as N
     from ood_in_object_detection_torch.ops import roi_align as R
@@ -639,46 +646,47 @@ def phase_kernels(torch, det, det16, dist_method, images, launches, launches16):
                              "ood_in_object_detection_tpu/ops/pallas/roi.py:150", out16,
                              total["roi_contract_bf16"], 1e-5))
 
-    # K3: the real features against the fitted bank; a K=5 bank with empty
-    # groups for cosine and l2. L2 near 0 is sqrt of a cancelled difference
-    # (~1e-7 in the square -> ~3e-4 after the root), hence its atol 1e-3.
+    # K3: the real features against the fitted bank (the main path's case,
+    # which heads the entry); K 5 banks with empty groups and K 200 banks
+    # (K D past 227 KB, two slices of the wide tile), 30 % of the centroids
+    # masked out, for cosine and l2. L2 near 0 is sqrt of a cancelled
+    # difference (~1e-7 in the square -> ~3e-4 after the root), hence its
+    # atol 1e-3. Each case: the wrapper's ms, its device time, its bound and
+    # cuBLAS's x @ C.T plus the masked minimum as an observation.
+    from ood_in_object_detection_torch.scripts import bench_k3 as BK3
+
     feats, groups, kmask = dist_method.group_inputs(
         distance_features(dist_method, out, det.neck_channels())[0])
     ng, dd = groups.shape[0], groups.shape[2]
     brng = np.random.default_rng(SEED + 3)
-    k5 = D.l2_normalize_rows(torch.tensor(brng.normal(size=(ng, 5, dd)), dtype=torch.float32,
-                                          device=DEVICE))
-    k5mask = torch.tensor(brng.uniform(size=(ng, 5)) > 0.3, device=DEVICE)
-    k5mask[::7] = False
-    cases = [("fitted_bank", "cosine", feats, groups, kmask),
-             ("k5_bank", "cosine", feats, k5, k5mask), ("k5_bank", "l2", feats, k5, k5mask)]
-    err = 0.0
-    for label, metric, xf, cg, km in cases:
-        got = D.min_group_distances(xf, cg, km, metric)
-        ref = D.min_group_distances_plain(xf, cg, km, metric)
-        fin = torch.isfinite(ref)
-        if not torch.equal(torch.isinf(got), torch.isinf(ref)):
-            raise AssertionError(f"min_group_distance {label}/{metric}: empty groups differ")
-        e = float((got[fin] - ref[fin]).abs().max())
-        err = max(err, e)
-        emit("kernel_case", kernel="min_group_distance", case=f"{label}_{metric}",
-             shape=[xf.shape[0], cg.shape[0], cg.shape[1], cg.shape[2]],
-             empty_groups=int((~km.any(1)).sum()), max_abs_err=e)
-        if e > (1e-3 if metric == "l2" else 1e-5):
-            raise AssertionError(f"min_group_distance {label}/{metric}: err {e}")
-    dmat = D.min_group_distances(feats, groups, kmask, "cosine")
+    cases = [("fitted_bank", "cosine", groups, kmask)]
+    for kk, masked, empty_every in ((5, 0.3, 7), (200, 0.3, 0)):
+        for metric in ("cosine", "l2"):
+            cases.append((f"k{kk}_bank", metric,
+                          *BK3.bank(brng, ng, kk, dd, masked, empty_every, DEVICE, metric)))
+    err, k3_cases = 0.0, []
+    for label, metric, cg, km in cases:
+        m = BK3.measure(feats, cg, km, metric, reps=20)
+        if "error" in m or not m["agrees"]:
+            raise AssertionError(f"min_group_distance {label}/{metric}: {m}")
+        err = max(err, m["max_abs_err"])
+        emit("kernel_case", kernel="min_group_distance", case=f"{label}_{metric}", **m)
+        k3_cases.append(dict(case=f"{label}_{metric}", **m))
+    main = k3_cases[0]
     entries.append(dict(name="min_group_distance", route="cuda",
                         source="ood_in_object_detection_torch/csrc/min_group_distance.cu",
                         replaces="ood_in_object_detection_tpu/ops/pallas/distance.py:59",
                         launches=total["min_group_distances"], max_abs_err=err,
-                        ms=cuda_ms(lambda: D.min_group_distances(feats, groups, kmask, "cosine")),
-                        plain_ms=cuda_ms(lambda: D.min_group_distances_plain(
-                            feats, groups, kmask, "cosine")),
-                        **bound(nbytes(feats, groups, kmask, dmat),
-                                2.0 * feats.shape[0] * dd * float(kmask.sum()), "f32"),
+                        **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "cublas_amin_ms")},
                         library_ms=None,
                         library="none: no single PyTorch call computes the masked minimum "
-                                "over each group's centroids"))
+                                "over each group's centroids (cublas_amin_ms: x @ C.T, then "
+                                "the distance, the mask and amin, several calls)",
+                        cases=[{k: c[k] for k in ("case", "shape", "valid_centroids", "ms",
+                                                  "device_ms", "bound_ms", "bound_by",
+                                                  "cublas_amin_ms", "max_abs_err")}
+                               for c in k3_cases]))
 
     # K4: the stems of both paths
     entries.append(stem_entry(torch, S, det, images, total["fused_stem"]))

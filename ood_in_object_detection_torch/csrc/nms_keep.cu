@@ -17,15 +17,18 @@
 //      main path's valid boxes are a prefix (confidence-sorted), so the work
 //      is the triangle of the valid prefix, found on the device.
 //   2. nms_sweep_kernel: one block per image walks the boxes in blocks of
-//      64. It copies the next block's mask rows (words at and right of the
-//      diagonal) into shared memory with cp.async while it resolves the
-//      current one: one thread settles the 64 boxes of the block in
-//      registers from its diagonal words (a box is kept if it is valid and
-//      no kept box suppressed it), then all threads OR the kept rows' words
-//      right of the diagonal into the removed set, 8 rows of one word per
+//      64. It copies the next block's 64 diagonal words into shared memory
+//      with cp.async while it resolves the current one: one thread settles
+//      the 64 boxes of the block in registers from its diagonal words (a
+//      box is kept if it is valid and no kept box suppressed it), then all
+//      threads OR the kept rows' words right of the diagonal, read from
+//      global memory (L2), into the removed set, 8 rows of one word per
 //      thread. The serial chain is nw blocks of 64 register steps, not k
 //      dependent loads from memory; the sweep stops after the last block
-//      that holds a valid box.
+//      that holds a valid box. Shared memory holds the removed set and the
+//      valid bits, 16 nw bytes, so any k launches (staging whole 64-row
+//      blocks of the mask instead was slower at every k measured and capped
+//      k at 14,272).
 //
 // What bounds it on an H100: phase 1 is at most k^2 / 2 IoUs per image,
 // ~13 flops each (0.5 M at k = 1024: nothing for the card, so its time is
@@ -67,12 +70,15 @@ __global__ void __launch_bounds__(kWordBits) nms_mask_kernel(
     float thr, unsigned long long* __restrict__ mask) {
   __shared__ float4 cols[kWordBits];
   __shared__ bool col_ok[kWordBits];
-  int t = blockIdx.x, rb = 0;
-  while (t >= nw - rb) {
-    t -= nw - rb;
-    ++rb;
-  }
-  const int cb = rb + t;
+  // row block rb starts at pair rb nw - rb (rb - 1) / 2: invert that in
+  // closed form (k of tens of thousands has hundreds of row blocks), then
+  // settle the rounding of the square root
+  const long long t = blockIdx.x, n2 = 2 * static_cast<long long>(nw) + 1;
+  int rb = static_cast<int>((n2 - sqrt(static_cast<double>(n2 * n2 - 8 * t))) * 0.5);
+  auto start = [nw](long long r) { return r * nw - r * (r - 1) / 2; };
+  while (rb > 0 && start(rb) > t) --rb;
+  while (rb + 1 < nw && start(rb + 1) <= t) ++rb;
+  const int cb = rb + static_cast<int>(t - start(rb));
   const int b = blockIdx.y;
   const int row = rb * kWordBits + threadIdx.x, col = cb * kWordBits + threadIdx.x;
   const float4* bb = boxes + static_cast<size_t>(b) * k;
@@ -104,28 +110,25 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// rows 64 i .. of image b, words i .. nb - 1, into stage (pitch nw words)
-__device__ __forceinline__ void load_row_block(const unsigned long long* m, int k, int nw,
-                                               int nb, int i, unsigned long long* stage) {
-  const int width = nb - i;
-  const int rows = min(kWordBits, k - i * kWordBits);
-  for (int e = threadIdx.x; e < rows * width; e += kSweepThreads) {
-    const int r = e / width, w = i + e % width;
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(stage + r * nw + w)),
-                 "l"(m + static_cast<size_t>(i * kWordBits + r) * nw + w));
-  }
+// the diagonal words of rows 64 i .. of image b (word i of each row) into stage
+__device__ __forceinline__ void load_diagonal(const unsigned long long* m, int k, int nw, int i,
+                                              unsigned long long* stage) {
+  const int r = threadIdx.x;
+  if (r < kWordBits && i * kWordBits + r < k)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(stage + r)),
+                 "l"(m + static_cast<size_t>(i * kWordBits + r) * nw + i));
   asm volatile("cp.async.commit_group;\n");
 }
 
-// grid B, block kSweepThreads; dynamic shared memory: two stages of 64 x nw
-// words, the removed set and the valid bits (nw words each)
+// grid B, block kSweepThreads; dynamic shared memory: two stages of the 64
+// diagonal words, then the removed set and the valid bits (nw words each)
 __global__ void __launch_bounds__(kSweepThreads) nms_sweep_kernel(
     const unsigned long long* __restrict__ mask, const uint8_t* __restrict__ valid, int k,
     int nw, uint8_t* __restrict__ keep) {
   extern __shared__ unsigned long long smem[];
-  unsigned long long* stages = smem;                        // [2][64][nw]
-  unsigned long long* removed = smem + 2 * kWordBits * nw;  // [nw]
-  unsigned long long* vbits = removed + nw;                 // [nw]
+  unsigned long long* stages = smem;                         // [2][64]
+  unsigned long long* removed = smem + 2 * kWordBits;        // [nw]
+  unsigned long long* vbits = removed + nw;                  // [nw]
   __shared__ int n_blocks;
   __shared__ unsigned long long kept_s;
   const int b = blockIdx.x, tid = threadIdx.x;
@@ -149,16 +152,16 @@ __global__ void __launch_bounds__(kSweepThreads) nms_sweep_kernel(
   // boxes that are not valid, so they are neither read nor updated
   const int nb = n_blocks;
 
-  if (nb > 0) load_row_block(m, k, nw, nb, 0, stages);
+  if (nb > 0) load_diagonal(m, k, nw, 0, stages);
   for (int i = 0; i < nb; ++i) {
-    const unsigned long long* rows = stages + (i & 1) * kWordBits * nw;
+    const unsigned long long* diag = stages + (i & 1) * kWordBits;
     if (i + 1 < nb) {
-      load_row_block(m, k, nw, nb, i + 1, stages + ((i + 1) & 1) * kWordBits * nw);
+      load_diagonal(m, k, nw, i + 1, stages + ((i + 1) & 1) * kWordBits);
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
-    __syncthreads();  // block i's rows landed; removed[i] is final
+    __syncthreads();  // block i's diagonal landed; removed[i] is final
     if (tid == 0) {
       // the diagonal: box r of the block is kept if valid and not removed;
       // its word then removes the later boxes of the block it overlaps. The
@@ -168,7 +171,7 @@ __global__ void __launch_bounds__(kSweepThreads) nms_sweep_kernel(
       unsigned long long rem = removed[i], kept = 0ull;
 #pragma unroll
       for (int r = 0; r < kWordBits; ++r) {
-        const unsigned long long d = rows[r * nw + i];
+        const unsigned long long d = diag[r];
         if (vb & ~rem & (1ull << r)) {
           kept |= 1ull << r;
           rem |= d;
@@ -187,7 +190,7 @@ __global__ void __launch_bounds__(kSweepThreads) nms_sweep_kernel(
 #pragma unroll
       for (int e = 0; e < kWordBits / 8; ++e) {
         const int r = rows0 + e;
-        if ((kept >> r) & 1ull) acc |= rows[r * nw + w];
+        if ((kept >> r) & 1ull) acc |= __ldg(m + static_cast<size_t>(i * kWordBits + r) * nw + w);
       }
       if (acc) atomicOr(&removed[w], acc);
     }
@@ -209,7 +212,7 @@ extern "C" int nms_keep_launch(const float* boxes, const uint8_t* valid, float t
       reinterpret_cast<const float4*>(boxes), valid, k, nw, thr, mask);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = (2 * kWordBits + 2) * static_cast<size_t>(nw) * sizeof(unsigned long long);
+  const size_t smem = (2 * kWordBits + 2 * static_cast<size_t>(nw)) * sizeof(unsigned long long);
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(nms_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));

@@ -14,6 +14,7 @@ in the JAX package; it stays plain PyTorch on every device
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -80,6 +81,39 @@ def min_group_distances_plain(feats: torch.Tensor, centroids: torch.Tensor,
     return dmat.amin(dim=-1)
 
 
+class K3Plan(NamedTuple):
+    """Kernel K3's schedule for one call (csrc/min_group_distance.cu): the
+    ``wide`` tile or the narrow one, its rows and columns a block (bm, bn),
+    groups a block (gr), the grid (runs of groups x row tiles), the D values
+    a stage holds (chunk) and the thread groups that split them (ksplit)."""
+
+    wide: bool
+    bm: int
+    bn: int
+    gr: int
+    runs: int
+    row_tiles: int
+    chunk: int
+    ksplit: int
+
+
+# (rows, centroid columns, chunk, ksplit) of a block: Narrow for K <= 64
+# (100 blocks at N 2400, one wave), Wide for larger K (one group a block)
+K3_NARROW = (24, 64, 64, 8)
+K3_WIDE = (128, 128, 32, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def k3_plan(n: int, g: int, k: int) -> K3Plan:
+    """K <= 64: the narrow tile, a block taking as many whole groups as fit
+    in 64 columns (all 60 of the eval path's at K 1); larger K: the wide
+    tile, one group a block, its centroids in slices of 128."""
+    wide = k > K3_NARROW[1]
+    bm, bn, chunk, ksplit = K3_WIDE if wide else K3_NARROW
+    gr = 1 if wide else max(1, min(g, bn // k))
+    return K3Plan(wide, bm, bn, gr, -(-g // gr), -(-n // bm), chunk, ksplit)
+
+
 def min_group_distances(feats: torch.Tensor, centroids: torch.Tensor,
                         kmask: torch.Tensor, metric: str) -> torch.Tensor:
     """``out[n, g] = min_k dist(feats[n], centroids[g, k])`` over masked-in
@@ -87,28 +121,36 @@ def min_group_distances(feats: torch.Tensor, centroids: torch.Tensor,
     already be unit length (the kernel computes 1 - x.c).
 
     Replaces ops/pallas/distance.py:min_group_distances_pallas. CUDA tensors
-    launch kernel K3 (cosine, l2); CPU tensors take
-    :func:`min_group_distances_plain`."""
+    launch kernel K3 (cosine, l2) once, for any K and D; CPU tensors take
+    :func:`min_group_distances_plain`. The checks are ordered so that the
+    common case costs the host a few microseconds."""
     if feats.dim() != 2 or centroids.dim() != 3 or kmask.shape != centroids.shape[:2] \
             or centroids.shape[2] != feats.shape[1]:
         raise ValueError(f"min_group_distances: feats {tuple(feats.shape)}, centroids "
                          f"{tuple(centroids.shape)}, kmask {tuple(kmask.shape)} disagree")
-    if feats.device.type == "cpu":
+    dev = feats.device
+    if dev.type == "cpu":
         return min_group_distances_plain(feats, centroids, kmask, metric)
     from ..ops.kernels import _build
 
     if metric not in ("cosine", "l2", "euclidean"):
         raise ValueError(f"min_group_distances: kernel K3 has no {metric} metric")
-    _build.require_cuda("min_group_distances", feats=feats, centroids=centroids, kmask=kmask)
+    if not (dev.type == "cuda" and centroids.device == dev and kmask.device == dev
+            and feats.is_contiguous() and centroids.is_contiguous()
+            and kmask.is_contiguous()):
+        _build.require_cuda("min_group_distances", feats=feats, centroids=centroids,
+                            kmask=kmask)
     if feats.dtype != torch.float32 or centroids.dtype != torch.float32 \
             or kmask.dtype != torch.bool:
         raise TypeError("min_group_distances: needs f32 feats/centroids and a bool kmask")
     n, d = feats.shape
     g, k, _ = centroids.shape
-    out = torch.empty((n, g), dtype=torch.float32, device=feats.device)
+    plan = k3_plan(n, g, k)
+    out = feats.new_empty((n, g))
     code = _build.launcher("min_group_distance")(
         feats.data_ptr(), centroids.data_ptr(), kmask.data_ptr(), n, g, k, d,
-        int(metric != "cosine"), out.data_ptr(), _build.stream_handle(feats.device))
+        int(metric != "cosine"), int(plan.wide), plan.gr, out.data_ptr(),
+        _build.stream_handle(dev))
     min_group_distances.launches += 1
     _build.check_launch("min_group_distance", code)
     return out

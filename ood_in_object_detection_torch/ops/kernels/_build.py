@@ -35,7 +35,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "nms_keep": ("nms_keep_launch", [P, P, F, I, I, P, P, P]),
     "roi_contract": ("roi_contract_launch", [P, P, P, I, I, I, I, I, I, I, P, P]),
-    "min_group_distance": ("min_group_distance_launch", [P, P, P, I, I, I, I, I, P, P]),
+    "min_group_distance": ("min_group_distance_launch", [P, P, P, I, I, I, I, I, I, I, P, P]),
     "fused_stem": ("fused_stem_launch", [P, P, P, P, P, I, I, I, I, I, I, P, P]),
     "stem_parts_copy": ("stem_parts_copy_launch", [P, P, I, I, I, I, I, I, I, P]),
     "stem_parts_shift": ("stem_parts_shift_launch", [P, P, I, I, I, I, I, I, P]),
@@ -123,10 +123,14 @@ def build_all() -> list:
 
 
 def stream_handle(device) -> int:
-    """The raw handle of PyTorch's current CUDA stream on ``device``."""
+    """The raw handle of PyTorch's current CUDA stream on ``device``.
+    ``torch._C._cuda_getCurrentRawStream`` (the getter Triton's launcher
+    uses) takes 0.3 us on the host; building the ``torch.cuda.Stream``
+    object takes ~10 us, more than some of the kernels it launches."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require_cuda(name: str, **tensors) -> None:

@@ -9,7 +9,9 @@ confidence order; the top ``max_det`` survivors are returned as padded
 
 The keep mask comes from :func:`greedy_keep`, which launches CUDA kernel K1
 (``csrc/nms_keep.cu``) for every candidate count on a CUDA tensor, and runs
-its plain PyTorch version :func:`greedy_keep_plain` on a CPU tensor.
+its plain PyTorch version :func:`greedy_keep_plain` on a CPU tensor. Any
+``pre_nms_k`` is served, as the JAX package's ``_greedy_keep_tiled`` serves
+it.
 """
 
 from __future__ import annotations
@@ -21,8 +23,6 @@ import torch
 from .boxes import box_iou, xywh2xyxy
 
 MAX_WH = 7680.0
-# largest candidate count K1 takes (its scratch mask is k*k/8 bytes per image)
-MAX_PRE_NMS_K = 4096
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,14 +60,12 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
     (B, k) bool validity -> (B, k) bool.
 
     Replaces ops/pallas/nms.py:greedy_keep_pallas. CUDA tensors launch
-    kernel K1 (csrc/nms_keep.cu) for every k <= MAX_PRE_NMS_K; CPU tensors
-    take :func:`greedy_keep_plain`."""
+    kernel K1 (csrc/nms_keep.cu) for every k; CPU tensors take
+    :func:`greedy_keep_plain`."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
         raise ValueError(f"greedy_keep: boxes {tuple(boxes.shape)} and valid "
                          f"{tuple(valid.shape)} must be (B, k, 4) and (B, k)")
     b, k = valid.shape
-    if k > MAX_PRE_NMS_K:
-        raise ValueError(f"greedy_keep: k={k} exceeds MAX_PRE_NMS_K={MAX_PRE_NMS_K}")
     if boxes.device.type == "cpu":
         return greedy_keep_plain(boxes, valid, iou_thres)
     from .kernels import _build
@@ -76,7 +74,7 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
     if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
         raise TypeError(f"greedy_keep: needs f32 boxes and bool valid, got "
                         f"{boxes.dtype} and {valid.dtype}")
-    nw = (k + 63) // 64
+    nw = (k + 63) // 64  # the scratch mask: k * k / 8 bytes an image
     mask = torch.empty((b, k, nw), dtype=torch.int64, device=boxes.device)
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     code = _build.launcher("nms_keep")(

@@ -5,10 +5,11 @@ on seeded inputs at the main path's shapes.
 
 K1 (ops/nms.py:greedy_keep) on (8, 1024) clustered boxes (as chip_smoke's
 ``controlled`` case), on a ``chain`` where each box overlaps the next and
-greedy NMS keeps every second one, and on (1, 4096) all-valid boxes: the
-wrapper's time (CUDA events) and the device time of each of its two
-kernels, the mask phase and the sweep phase (torch.profiler), with the keep
-mask held equal to the plain version. K4 (ops/stem.py:fused_stem_launch on
+greedy NMS keeps every second one, on (1, 4096) and (1, 16384) all-valid
+boxes and on (2, 8400) boxes, 90 % valid: the wrapper's time (CUDA events)
+and the device time of each of its two kernels, the mask phase and the
+sweep phase (torch.profiler), with the keep mask held equal to the plain
+version. K4 (ops/stem.py:fused_stem_launch on
 operands folded once) at yolov8l's stem widths (C1 64, C2 128) on (8, 3,
 640, 640) images, f32 and bf16, beside cuDNN's two convolutions (TF32 off)
 and its error against the plain version.
@@ -75,7 +76,9 @@ def k1_phase_ms(boxes, valid, reps: int) -> dict:
 def k1_cases() -> dict:
     """K1's seeded cases, name -> ((B, k, 4) boxes in score order, (B, k)
     validity): clustered boxes at (8, 1024), 90 % valid; the chain; 4096
-    valid boxes spread over 3 classes."""
+    valid boxes spread over 3 classes; 8400 (640 px's anchor count) in two
+    images, 90 % valid; 16384 valid, past the 14,272 where staging whole
+    64-row blocks of the mask in shared memory stops fitting."""
     rng = np.random.default_rng(2)
     centres = rng.uniform(20, 600, (8, 257, 2))
     pick = rng.integers(0, 257, (8, 1024))
@@ -83,7 +86,9 @@ def k1_cases() -> dict:
     wh = rng.uniform(20, 120, (8, 1024, 2))
     controlled = (np.concatenate([c - wh / 2, c + wh / 2], -1), rng.uniform(size=(8, 1024)) > 0.1)
     return {"controlled": controlled, "chain": chain_boxes(8, 1024),
-            "k4096": (random_boxes(rng, 1, 4096), np.ones((1, 4096), bool))}
+            "k4096": (random_boxes(rng, 1, 4096), np.ones((1, 4096), bool)),
+            "k8400": (random_boxes(rng, 2, 8400), rng.uniform(size=(2, 8400)) > 0.1),
+            "k16384": (random_boxes(rng, 1, 16384), np.ones((1, 16384), bool))}
 
 
 def chain_boxes(b: int, k: int):

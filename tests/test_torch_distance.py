@@ -8,6 +8,8 @@ cancellation error of ~1e-7 in the squared distance becomes ~3e-4 after
 the square root of a value near zero."""
 
 import functools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -126,3 +128,156 @@ def test_unported_cluster_methods_raise():
         tmethods.DistanceOODMethod.from_name("L2_cl_stride", cluster_method="KMeans_10")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmethods.DistanceOODMethod.from_name("Umap")
+
+
+# K3's schedule (csrc/min_group_distance.cu), emulated in plain torch: row
+# tiles (rows past N clamped to the last, never written), runs of groups,
+# each run's valid centroids compacted in order into slices of at most BN
+# columns, D in chunks with zeros past D, each chunk split among ksplit
+# thread groups whose partial dots are summed in group order, |x|^2 and
+# |c|^2 summed over the same chunks (l2), the distances folded segment by
+# segment (8 columns, one fold per change of group) into a running minimum
+# a (row, group), +inf where a group has no valid centroid.
+
+def _k3_schedule(feats, cents, kmask, metric):
+    n, d = feats.shape
+    g, k, _ = cents.shape
+    plan = tdist.k3_plan(n, g, k)
+    chunk, kgw = plan.chunk, plan.chunk // plan.ksplit
+    chunks = -(-d // chunk)
+    pad = chunks * chunk - d
+    x = torch.nn.functional.pad(feats, (0, pad))
+    flat_c = torch.nn.functional.pad(cents.reshape(g * k, d), (0, pad))
+    flat_m = kmask.reshape(-1)
+    out = torch.full((n, g), float("nan"))
+    slices = 0
+    for t in range(plan.row_tiles):
+        r0 = t * plan.bm
+        xt = x[torch.clamp(torch.arange(r0, r0 + plan.bm), max=n - 1)]
+        rows = min(plan.bm, n - r0)
+        for run in range(plan.runs):
+            g0 = run * plan.gr
+            ng = min(plan.gr, g - g0)
+            runmin = torch.full((plan.bm, ng), float("inf"))
+            valid = torch.nonzero(flat_m[g0 * k:(g0 + ng) * k]).flatten()
+            for s0 in range(0, len(valid), plan.bn):
+                cols = valid[s0:s0 + plan.bn]
+                cs = flat_c[g0 * k + cols]
+                part = torch.zeros(plan.ksplit, plan.bm, len(cols))
+                xx, cc = torch.zeros(plan.bm), torch.zeros(len(cols))
+                for ch in range(chunks):
+                    for kg in range(plan.ksplit):
+                        sl = slice(ch * chunk + kg * kgw, ch * chunk + (kg + 1) * kgw)
+                        part[kg] += xt[:, sl] @ cs[:, sl].T
+                    sl = slice(ch * chunk, (ch + 1) * chunk)
+                    xx += (xt[:, sl] ** 2).sum(1)
+                    cc += (cs[:, sl] ** 2).sum(1)
+                dot = part[0]
+                for kg in range(1, plan.ksplit):
+                    dot = dot + part[kg]
+                dist = (torch.sqrt(torch.clamp(xx[:, None] + cc[None] - 2.0 * dot, min=0.0))
+                        if metric == "l2" else 1.0 - dot)
+                grp = (cols // k).tolist()
+                for c0 in range(0, len(cols), 8):
+                    cur, best = grp[c0], dist[:, c0]
+                    for c in range(c0 + 1, min(c0 + 8, len(cols))):
+                        if grp[c] != cur:
+                            runmin[:, cur] = torch.minimum(runmin[:, cur], best)
+                            cur, best = grp[c], dist[:, c]
+                        else:
+                            best = torch.minimum(best, dist[:, c])
+                    runmin[:, cur] = torch.minimum(runmin[:, cur], best)
+                slices += 1
+            out[r0:r0 + rows, g0:g0 + ng] = runmin[:rows]
+    return out, slices
+
+
+def _k3_inputs(rng, n, g, k, d, metric, masked=0.3, empty=(0,)):
+    """Unit feature rows, as the distance methods give them
+    (ood/pipeline.py:distance_features); for l2 centroids of norm 0.5-1,
+    like means of unit rows, for cosine unit ones; one row an exact hit."""
+    feats = np.array(j_normalize(jnp.asarray(rng.normal(0, 1, (n, d)).astype(np.float32))))
+    cents = np.array(j_normalize(jnp.asarray(rng.normal(0, 1, (g, k, d)).astype(np.float32))))
+    if metric == "l2":
+        cents = (cents * rng.uniform(0.5, 1.0, (g, k, 1))).astype(np.float32)
+    kmask = rng.uniform(size=(g, k)) > masked
+    for e in empty:
+        kmask[e] = False
+    feats[min(3, n - 1)] = cents[-1, int(np.argmax(kmask[-1]))]  # dist ~0
+    return feats, cents, kmask
+
+
+@pytest.mark.parametrize("n,g,k", [(2400, 60, 1), (2400, 60, 5), (2400, 60, 200), (7, 3, 64),
+                                   (7, 3, 65)])
+def test_k3_plan(n, g, k):
+    """The eval path's K 1 is one run of all 60 groups over 100 row tiles of
+    24 (one block an SM, one wave); K 5 takes 12 groups a run; K > 64 the
+    wide tile, one group a block."""
+    plan = tdist.k3_plan(n, g, k)
+    assert plan.row_tiles == -(-n // plan.bm) and plan.runs == -(-g // plan.gr)
+    assert plan.chunk % (2 * plan.ksplit) == 0
+    if k <= 64:
+        assert not plan.wide and plan.gr * k <= plan.bn and plan.bm == 24
+        assert plan.gr == min(g, 64 // k)
+    else:
+        assert plan.wide and plan.gr == 1 and plan.bn == 128
+    if (n, g, k) == (2400, 60, 1):
+        assert (plan.runs, plan.row_tiles) == (1, 100)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+@pytest.mark.parametrize("case", ["ragged_rows", "ragged_d", "k_past_tile", "all_empty_group",
+                                  "kd_past_227kb"])
+def test_k3_schedule_matches_plain(case, metric):
+    """N not a multiple of the row tile; D not a multiple of the chunk; K
+    past one column tile (two slices, the minimum carried); an all-empty
+    group; K D past 227 KB of shared memory (K 120, D 512: the bank the old
+    kernel could not stage)."""
+    rng = np.random.default_rng(len(case))
+    n, g, k, d, masked, empty = {"ragged_rows": (37, 6, 5, 64, 0.3, (0,)),
+                                 "ragged_d": (20, 5, 3, 100, 0.3, (0,)),
+                                 "k_past_tile": (21, 3, 150, 40, 0.05, ()),
+                                 "all_empty_group": (18, 4, 70, 32, 0.3, (1, 3)),
+                                 "kd_past_227kb": (19, 2, 120, 512, 0.3, (0,))}[case]
+    feats, cents, kmask = _k3_inputs(rng, n, g, k, d, metric, masked, empty)
+    f, c, m = torch.from_numpy(feats), torch.from_numpy(cents), torch.from_numpy(kmask)
+    got, slices = _k3_schedule(f, c, m, metric)
+    ref = tdist.min_group_distances_plain(f, c, m, metric).numpy()
+    assert not np.isnan(got.numpy()).any()
+    _close(got.numpy(), ref, metric)
+    for e in empty:
+        assert np.isinf(got.numpy()[:, e]).all()
+    plan = tdist.k3_plan(n, g, k)
+    if case == "k_past_tile":  # more valid centroids in a group than one slice holds
+        assert kmask.sum(1).max() > plan.bn and slices > plan.runs * plan.row_tiles
+    if case == "kd_past_227kb":
+        assert k * d * 4 > 227 * 1024
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+@pytest.mark.parametrize("k", [5, 140])
+def test_k3_schedule_matches_pallas(k, metric, monkeypatch):
+    """K > 1 with empty groups: the emulated schedule, the port's wrapper
+    (plain on the CPU) and the JAX Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(k)
+    feats, cents, kmask = _k3_inputs(rng, 40, 5, k, 64, metric, 0.05, (0, 3))
+    monkeypatch.setattr(pdist.pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    ref = np.asarray(pdist.min_group_distances_pallas(
+        jnp.asarray(feats), jnp.asarray(cents), jnp.asarray(kmask), metric))
+    f, c, m = torch.from_numpy(feats), torch.from_numpy(cents), torch.from_numpy(kmask)
+    got, _ = _k3_schedule(f, c, m, metric)
+    assert np.isinf(ref[:, 0]).all() and np.isinf(ref[:, 3]).all()
+    _close(got.numpy(), ref, metric)
+    _close(tdist.min_group_distances(f, c, m, metric).numpy(), ref, metric)
+
+
+@pytest.mark.parametrize("tile", ["Narrow", "Wide"])
+def test_k3_plan_matches_kernel_tiles(tile):
+    """ood/distance.py's plan (rows, columns, chunk, ksplit) is the tile
+    csrc/min_group_distance.cu compiles: Cfg<BM, BN, TM, TN, WC, KSPLIT,
+    GR_MAX, CHUNK, STAGES, MIN_BLOCKS>."""
+    src = (Path(tdist.__file__).parents[1] / "csrc" / "min_group_distance.cu").read_text()
+    args = re.search(rf"using {tile} = Cfg<([^>]*)>;", src).group(1)
+    bm, bn, _, _, _, ksplit, gr_max, chunk, _, _ = (int(v) for v in args.split(","))
+    assert (bm, bn, chunk, ksplit) == (tdist.K3_NARROW if tile == "Narrow" else tdist.K3_WIDE)
+    assert gr_max == (bn if tile == "Narrow" else 1)

@@ -36,10 +36,14 @@ def dev():
                                       (2, 64, "random"), (3, 65, "random"),
                                       (8, 1024, "all_invalid"), (8, 1024, "single_valid"),
                                       (8, 1024, "prefix_valid"), (8, 1024, "chain"),
-                                      (1, 4096, "all_valid"), (2, 65, "chain")])
+                                      (1, 4096, "all_valid"), (2, 65, "chain"),
+                                      (1, 4100, "random"), (2, 8400, "random"),
+                                      (1, 16384, "all_valid")])
 def test_nms_keep_kernel_matches_plain(dev, b, k, kind):
     """Bit-equal keep masks; validity random, none, one box, a prefix (the
-    main path's), all; ``chain``: greedy keeps every second box."""
+    main path's), all; ``chain``: greedy keeps every second box. k 8400 is
+    640 px's anchor count; k 16384 is past the 14,272 where a sweep that
+    staged whole 64-row blocks of the mask ran out of shared memory."""
     rng = np.random.default_rng(k)
     c = rng.uniform(0, 640, (b, k, 2))
     wh = rng.uniform(5, 200, (b, k, 2))
@@ -337,8 +341,13 @@ def test_fused_stem_kernel_refuses_shapes(dev, c1, c2, shape):
 
 
 @pytest.mark.parametrize("metric", ["cosine", "l2"])
-@pytest.mark.parametrize("n,g,k,d", [(2400, 60, 1, 512), (37, 6, 5, 128)])
+@pytest.mark.parametrize("n,g,k,d", [(2400, 60, 1, 512), (2400, 60, 5, 512),
+                                     (2400, 60, 200, 512), (37, 6, 5, 128),
+                                     (37, 6, 5, 130), (100, 4, 300, 70)])
 def test_min_group_distance_kernel_matches_plain(dev, metric, n, g, k, d):
+    """The eval path's K 1, K 5, and K 200 (K D past 227 KB, two slices of
+    the wide tile); ragged rows; D 130 and 70 take the 4-byte copies (rows
+    not 16-byte aligned) and end inside a chunk; K 300 three slices."""
     rng = np.random.default_rng(n + k)
     x = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32, device=dev)
     cents = torch.tensor(rng.normal(size=(g, k, d)), dtype=torch.float32, device=dev)

@@ -75,10 +75,34 @@ def test_keep_batched_matches_per_image():
         np.testing.assert_array_equal(got[i], ref)
 
 
-def test_keep_rejects_oversized_k():
-    boxes = torch.zeros(1, tnms.MAX_PRE_NMS_K + 1, 4)
-    with pytest.raises(ValueError, match="MAX_PRE_NMS_K"):
-        tnms.greedy_keep(boxes, torch.ones(1, tnms.MAX_PRE_NMS_K + 1, dtype=torch.bool), IOU)
+def _row_clusters(rng, k, per=4, w=100.0):
+    """k boxes in clusters of ``per`` w x w boxes shifted along x by
+    multiples of 11 px, clusters 200 px apart on a grid of class-offset
+    tiles, in a shuffled score order, 90 % valid. Two boxes of a cluster
+    overlap with IoU (w - dx) / (w + dx): 0.802 at one step (suppresses at
+    0.7), 0.639 at two (does not), so every IoU is far from the threshold and
+    greedy chains are common."""
+    n_cl = -(-k // per)
+    cl = np.arange(n_cl)
+    x0 = (cl % 32) * 200.0 + tnms.MAX_WH * (cl // 1024)
+    y0 = ((cl // 32) % 32) * 200.0
+    shift = rng.integers(0, 4, (n_cl, per)) * 11.0
+    x = (x0[:, None] + shift).reshape(-1)[:k]
+    y = np.repeat(y0, per)[:k]
+    boxes = np.stack([x, y, x + w, y + w], -1)[rng.permutation(k)]
+    return boxes.astype(np.float32), rng.uniform(size=k) > 0.1
+
+
+def test_keep_past_old_limit_matches_tiled():
+    """k 4100 (past the 4096 the port once refused; JAX's tiled NMS serves
+    any k): keep masks bit-equal to _greedy_keep_tiled."""
+    rng = np.random.default_rng(4100)
+    boxes, valid = _row_clusters(rng, 4100)
+    _assert_iou_margin(boxes)
+    got = tnms.greedy_keep(torch.from_numpy(boxes)[None], torch.from_numpy(valid)[None], IOU)[0]
+    ref = np.asarray(jnms._greedy_keep_tiled(jnp.asarray(boxes), jnp.asarray(valid), IOU))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert 0 < got.sum() < valid.sum() - 100  # suppression happened
 
 
 def _raw_levels(seed, img=256, nc=3, b=2):
