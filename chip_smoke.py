@@ -18,17 +18,31 @@ script exits non-zero without printing a result):
    evaluate for MSP and Cosine_cl_stride; the kernels' launch counters are
    reset just before and read just after, and K1, K2 (f32), K3 and K4 must
    have launched.
-4. e2e_bf16 (the --bf16 path): the same weights and batches in a bf16
+4. e2e_eul (enhanced unknown localization on the f32 path): e2e's detector
+   and fitted Cosine_cl_stride, evaluate with EUL over the OoD batches at
+   the default CUSTOM_HYP.unk (mean-absolute-deviation saliency, recursive
+   Otsu with 3 thresholds, entropy rank, top 3 an image, rank NMS 0.5),
+   the counters reset just before and read just after: K1-K4 must have
+   launched and the rank's own K2 and K3 launches (those beyond the same
+   evaluation without EUL) must show. Candidates must exist and the OWOD
+   dict must be finite. The front end on the card against the same P3
+   through the CPU (each threshold within one histogram bin, at most
+   0.5 % of mask cells differing), the rank's K2 and K3 against their
+   plain versions and the whole rank against the CPU's; proposals per
+   image, eval seconds with and without EUL, the front end's device time,
+   the host time of connected components and selection, the rank's K2 and
+   K3 times.
+5. e2e_bf16 (the --bf16 path): the same weights and batches in a bf16
    detector (f32 parameters, bf16 compute and taps), extract -> fit ->
    evaluate again with the counters reset; K4 and K2's bf16 route must have
    launched. Prints the bf16 predict step and the share of detections and of
    per-box decisions that differ from the f32 path, each under a ceiling.
-5. reference: one image through the card (kernels) and through the CPU
+6. reference: one image through the card (kernels) and through the CPU
    (plain PyTorch versions) with the same weights; maps, detections and
    taps must agree.
-6. profile, profile_bf16: device time of the predict step by kernel
+7. profile, profile_bf16: device time of the predict step by kernel
    (torch.profiler).
-7. kernels: each kernel against its plain PyTorch version on the card, on
+8. kernels: each kernel against its plain PyTorch version on the card, on
    tensors captured from the main paths (plus controlled, chain, k = 4096,
    (2, 8400) and k = 16384 NMS cases, K 5 and K 200 centroid banks with
    masked centroids and empty groups, yolov8n's stem widths and a corner
@@ -41,8 +55,9 @@ script exits non-zero without printing a result):
    the masked minimum (cublas_amin_ms); K2 gets Q built from wx and wy plus
    torch.bmm (library_with_q_ms) and, per level, the count of non-empty
    rows and the median, p99 and largest support rectangle; K4 gets the
-   launcher alone on operands folded once (kernel_ms).
-8. stem_parts (the stem probe ladder's path): the ladder entry point
+   launcher alone on operands folded once (kernel_ms). K2 (f32) and K3 also
+   carry ``eul_rank``: their numbers at the EUL rank's inputs.
+9. stem_parts (the stem probe ladder's path): the ladder entry point
    (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
    driven through all four ladders at full size, z (128, 160(+2), 160, 48)
    bf16, with the counters reset just before and read just after; the
@@ -219,7 +234,8 @@ def label_batches(det, images, unknown_every: int = 0, max_gt: int = 20):
             if unknown_every:
                 gtc[i, unknown_every - 1:n:unknown_every] = NC + 5
         out.append(dict(images=imgs, gt_bboxes=gtb, gt_labels=gtc, gt_mask=gtm,
-                        im_names=[f"b{bi}_{i}" for i in range(BATCH)]))
+                        im_names=[f"b{bi}_{i}" for i in range(BATCH)],
+                        ratio_pad=[((1.0, 1.0), (0.0, 0.0))] * BATCH))
     return out
 
 
@@ -267,6 +283,184 @@ def phase_e2e(torch):
          images_per_s=BATCH * 1000.0 / step_ms,
          predict_step_ms_unfused_stem=unfused_stem_ms(det, ood_imgs[0]))
     return det, methods, ind, ood, launches, step_ms
+
+
+# the front end on the card against the CPU: each threshold within one
+# histogram bin (1/256 of the image's saliency range; a cell whose f32
+# saliency sums in another order crosses a bin edge and may move Otsu's
+# argmax by a bin), and the share of mask cells that differ
+EUL_THR_TOL_BINS, EUL_MASK_DIFF_CEIL = 1.0, 0.005
+# letterbox pads (px, py) in stride-8 cells for the front end's comparison
+EUL_PADS = [[0, 0], [0, 4], [2, 0], [3, 5]] * (BATCH // 4)
+
+
+def host_s(fn, reps: int = 5) -> float:
+    """Mean host seconds per call of a host-only ``fn``."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps
+
+
+def eul_frontend_check(torch, UD, p3, kw):
+    """The front end on the card against the same P3 through the CPU."""
+    pads = torch.tensor(EUL_PADS, dtype=torch.long)
+    gm, gt = UD.eul_frontend_masks(p3, pads.to(DEVICE), **kw)
+    cm, ct = UD.eul_frontend_masks(p3.cpu(), pads, **kw)
+    sal, _ = UD.eul_frontend(p3.cpu(), pads, **kw)
+    crop = UD._grid_mask(pads, *p3.shape[1:3])
+    span = torch.stack([s[c].max() - s[c].min() for s, c in zip(sal, crop)])
+    gt = gt.cpu()
+    same_pattern = bool(torch.equal(torch.isfinite(gt), torch.isfinite(ct)))
+    fin = torch.isfinite(ct)
+    bins = ((gt - ct).abs() / (span[:, None] / 256.0))[fin]
+    return dict(thresholds=int(fin.sum()), finite_pattern_equal=same_pattern,
+                thr_max_err_bins=float(bins.max()) if bins.numel() else 0.0,
+                thr_differing=int((bins > 1e-3).sum()),
+                mask_cells_differing_share=float((gm.cpu() != cm).float().mean()),
+                tolerance=dict(thr_bins=EUL_THR_TOL_BINS, mask_share=EUL_MASK_DIFF_CEIL),
+                pads=EUL_PADS)
+
+
+def eul_breakdown(torch, det, dm, batch):
+    """One batch's EUL in its parts, on e2e's detector: the front end (card
+    vs CPU; device time), connected components and heuristics (host), the
+    rank (K2 + K3 against their plain versions and against the CPU), the
+    selection (host)."""
+    from ood_in_object_detection_torch.core.config import CUSTOM_HYP
+    from ood_in_object_detection_torch.ood import distance as D
+    from ood_in_object_detection_torch.ood import pipeline as P
+    from ood_in_object_detection_torch.ood import unknown as U
+    from ood_in_object_detection_torch.ood import unknown_device as UD
+    from ood_in_object_detection_torch.ops import roi_align as R
+    from ood_in_object_detection_torch.scripts import bench_k3 as BK3
+
+    hyp = CUSTOM_HYP.unk
+    kw = dict(summarizer=hyp.SUMMARIZATION_METHOD, method=hyp.THRESHOLDING_METHOD,
+              num_thresholds=hyp.NUM_THRESHOLDS)
+    out = det.predict(batch["images"], conf_thres=CONF)
+    p3, rp = out.p3, batch["ratio_pad"]
+    boxes, valid = out.det.boxes.cpu().numpy(), out.det.valid.cpu().numpy()
+    pred = {i: boxes[i, : int(valid[i].sum())].astype(np.float64) for i in range(BATCH)}
+    fe_check = eul_frontend_check(torch, UD, p3, kw)
+    pads0 = torch.zeros((BATCH, 2), dtype=torch.long, device=DEVICE)
+    fe = U.eul_frontend_batched(p3, rp)
+    hw = tuple(p3.shape[1:3])
+
+    def candidates():
+        return {i: U.unknown_candidates_for_image(None, rp[i], pb, precomputed=fe[i],
+                                                  padded_hw=hw) for i, pb in pred.items()}
+
+    cand = candidates()
+    n = max(len(c) for c in cand.values())
+    if n == 0:
+        raise AssertionError("EUL found no candidate on any image")
+    props = np.zeros((BATCH, n, 4), np.float32)
+    for i, c in cand.items():
+        props[i, : len(c)] = c
+    props = torch.tensor(props, device=DEVICE)
+    bank, rows = P._stride0_rank_bank(dm, det.neck_channels()[0], DEVICE)
+    op = hyp.rank.RANK_BOXES_OPERATION
+
+    def rank():
+        return P.rank_reduce_batched(p3, props, bank, rows, dm.metric, op, False)
+
+    scores = rank()
+    scores_cpu = P.rank_reduce_batched(p3.cpu(), props.cpu(), *P._stride0_rank_bank(
+        dm, det.neck_channels()[0], "cpu"), dm.metric, op, False)
+    rank_err = float((scores.cpu() - scores_cpu).abs().max())
+    ranks = {i: scores.cpu().numpy()[i, : len(c)] for i, c in cand.items()}
+
+    def select():
+        return {i: U.finish_unknown_proposals(c, ranks.get(i) if len(c) else None,
+                                              unk_prop_thr=dm.unk_prop_thr)
+                for i, c in cand.items()}
+
+    chosen = select()
+
+    # K2 at the rank's inputs: 4 x 4 fixed hats on P3, spatial_scale 1.0
+    wx, wy = (t.contiguous() for t in R.box_axis_weights(hw, props, 1.0, 4))
+    got, ref = R.roi_contract(p3, wx, wy), R.roi_contract_plain(p3, wx, wy)
+    k2_err = float((got - ref).abs().max())
+    k2_rel = k2_err / float(ref.abs().max())
+    cells = support_cells(torch, wx, wy)
+    q = (wy[..., :, None] * wx[..., None, :]).reshape(BATCH, n, -1)
+    fmap = p3.reshape(BATCH, -1, p3.shape[-1])
+    k2 = dict(shape=list(p3.shape), rows=[BATCH, n], max_abs_err=k2_err, rel_err=k2_rel,
+              ms=cuda_ms(lambda: R.roi_contract(p3, wx, wy)),
+              device_ms=BK3.device_ms(lambda: R.roi_contract(p3, wx, wy), 20),
+              plain_ms=cuda_ms(lambda: R.roi_contract_plain(p3, wx, wy)),
+              **bound(nbytes(p3, wx, wy, got), float(cells.sum()) * 2.0 * p3.shape[-1], "f32"),
+              library_ms=cuda_ms(lambda: torch.bmm(q, fmap)),
+              library="torch.bmm of the materialised Q (Q built beforehand)")
+    if k2_rel > 1e-5:
+        raise AssertionError(f"EUL rank K2: rel err {k2_rel} > 1e-5")
+    # K3 at the rank's inputs: G = the classes, K 1, D = P3's channels
+    tf = D.l2_normalize_rows(got.reshape(BATCH * n, -1))
+    cents = D.l2_normalize_rows(bank.centroids[:, 0]).contiguous()
+    kmask = (torch.arange(cents.shape[1], device=DEVICE)[None, :]
+             < bank.count[:, 0, None]).contiguous()
+    k3 = BK3.measure(tf.contiguous(), cents, kmask, dm.metric, reps=20)
+    if "error" in k3 or not k3["agrees"]:
+        raise AssertionError(f"EUL rank K3: {k3}")
+    k3["library_ms"] = None
+    return dict(
+        frontend=fe_check,
+        frontend_device_ms=BK3.device_ms(lambda: UD.eul_frontend_masks(p3, pads0, **kw), 10),
+        frontend_ms=cuda_ms(lambda: U.eul_frontend_batched(p3, rp), reps=10),
+        candidates_per_image=[len(cand[i]) for i in range(BATCH)],
+        proposals_per_image=[len(chosen[i][0]) for i in range(BATCH)],
+        cc_host_ms=host_s(candidates) * 1e3, select_host_ms=host_s(select) * 1e3,
+        rank_ms=cuda_ms(rank), rank_device_ms=BK3.device_ms(rank, 20),
+        rank_vs_cpu_max_abs_err=rank_err, k2=k2, k3=k3)
+
+
+def phase_e2e_eul(torch, det, dm, ood):
+    """EUL on the f32 path: e2e's detector and fitted Cosine_cl_stride over
+    the OoD batches, with the counters reset around the EUL evaluation."""
+    from ood_in_object_detection_torch.ood.pipeline import evaluate_method
+
+    known, names = list(range(NC)), [f"c{k}" for k in range(NC)] + ["unknown"]
+
+    def run(eul):
+        t0 = time.perf_counter()
+        res = evaluate_method(det, ood, dm, known, names, conf_thr_test=CONF,
+                              enhanced_unk_localization=eul)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    run(True)  # first call: the front end's and the rank's first launches
+    reset_counters()
+    res_plain, plain_s = run(False)
+    base = read_counters()
+    reset_counters()
+    res, eul_s = run(True)
+    launches = read_counters()
+    rank = {k: launches[k] - base[k] for k in ("roi_contract", "min_group_distances")}
+    path = ("greedy_keep", "roi_contract", "min_group_distances", "fused_stem")
+    if not all(launches[k] for k in path) or min(rank.values()) < len(ood):
+        raise AssertionError(f"EUL did not launch its kernels: {launches}, the rank's {rank}")
+    if set(res) != OWOD_KEYS or not all(np.isfinite(v) for v in res.values()):
+        raise AssertionError(f"EUL: bad OWOD metric dict {res}")
+    parts = eul_breakdown(torch, det, dm, ood[0])
+    fe = parts["frontend"]
+    if not (fe["finite_pattern_equal"] and fe["thr_max_err_bins"] <= EUL_THR_TOL_BINS
+            and fe["mask_cells_differing_share"] <= EUL_MASK_DIFF_CEIL):
+        raise AssertionError(f"EUL front end: card and CPU disagree: {fe}")
+    if parts["rank_vs_cpu_max_abs_err"] > 1e-4:
+        raise AssertionError(f"EUL rank: card and CPU disagree: {parts['rank_vs_cpu_max_abs_err']}")
+    if not any(parts["candidates_per_image"]) or not any(parts["proposals_per_image"]):
+        raise AssertionError(f"EUL proposed nothing: {parts}")
+    emit("e2e_eul", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, dtype="float32",
+         batches=len(ood), conf_thr_test=CONF, hyp=dict(
+             summarizer="mean_absolute_deviation_of_ftmaps", thresholding="recursive_otsu",
+             num_thresholds=3, rank_op="entropy", top_k=3, rank_nms=0.5),
+         seconds=eul_s, seconds_without_eul=plain_s, launches=launches,
+         rank_launches=rank, rank_launches_per_batch={k: v / len(ood) for k, v in rank.items()},
+         metrics=res, metrics_without_eul=res_plain,
+         rank_k2_device_ms=parts["k2"]["device_ms"], rank_k3_device_ms=parts["k3"]["device_ms"],
+         **{k: v for k, v in parts.items() if k not in ("k2", "k3")})
+    return launches, parts
 
 
 def flip_shares(det32, det16, methods32, methods16, ood):
@@ -617,7 +811,8 @@ def stem_entry(torch, S, det, images, launches):
                              "wrapper, which folds BN and casts the weights on every call")
 
 
-def phase_kernels(torch, det, det16, dist_method, images, launches, launches16):
+def phase_kernels(torch, det, det16, dist_method, images, launches, launches16, launches_eul,
+                  eul_parts):
     from ood_in_object_detection_torch.ood.pipeline import distance_features
     from ood_in_object_detection_torch.ops import nms as N
     from ood_in_object_detection_torch.ops import roi_align as R
@@ -631,7 +826,7 @@ def phase_kernels(torch, det, det16, dist_method, images, launches, launches16):
     shifted, valid = N.nms_inputs(cand.boxes, cand.conf, cand.cls,
                                   torch.tensor(CONF, device=DEVICE))
     out = det.predict(images, conf_thres=CONF)
-    total = {k: launches[k] + launches16[k] for k in launches}
+    total = {k: launches[k] + launches16[k] + launches_eul[k] for k in launches}
     entries = []
 
     entries.append(nms_entry(torch, N, shifted, valid, total["greedy_keep"]))
@@ -687,6 +882,10 @@ def phase_kernels(torch, det, det16, dist_method, images, launches, launches16):
                                                   "device_ms", "bound_ms", "bound_by",
                                                   "cublas_amin_ms", "max_abs_err")}
                                for c in k3_cases]))
+
+    # K2 (f32) and K3 at the EUL rank's inputs (e2e_eul)
+    entries[1]["eul_rank"] = eul_parts["k2"]
+    entries[-1]["eul_rank"] = {k: v for k, v in eul_parts["k3"].items() if k != "agrees"}
 
     # K4: the stems of both paths
     entries.append(stem_entry(torch, S, det, images, total["fused_stem"]))
@@ -778,6 +977,7 @@ def main() -> int:
          kernels=[{k: b[k] for k in ("name", "seconds")} for b in builds],
          nvcc_flags=" ".join(_build.NVCC_FLAGS))
     det, methods, ind, ood, launches, step_ms = phase_e2e(torch)
+    launches_eul, eul_parts = phase_e2e_eul(torch, det, methods["Cosine_cl_stride"], ood)
     det16, launches16, step16_ms = phase_e2e_bf16(torch, det, methods, ind, ood)
     images = ood[0]["images"]
     phase_reference(torch, det, images)
@@ -785,7 +985,7 @@ def main() -> int:
     phase_profile(torch, det16, images, step16_ms, label="profile_bf16")
     with torch.no_grad():
         entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
-                                launches, launches16)
+                                launches, launches16, launches_eul, eul_parts)
     entries += phase_stem_parts(torch)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries, "card": env["nvidia_smi"]}), flush=True)

@@ -36,21 +36,20 @@ from ..engine import Detector
 from ..eval.results_writer import (
     append_results, fill_dataset_results, finalize_row, method_info_row,
 )
-from ..ood.methods import DistanceOODMethod
-from ..ood.pipeline import (_leaf_methods, assign_fitted_state, evaluate_method,
-                            extract_ind_activations)
+from ..ood.methods import DistanceOODMethod, FusionOODMethod
+from ..ood.pipeline import (_leaf_methods, assign_fitted_state, collect_fusion_member_indness,
+                            evaluate_method, extract_ind_activations)
 from .factory import build_ood_method, resolve_model_name
 
 log = logging.getLogger("ood_eval")
 
 # flag -> the ROADMAP.md item that will port it
 UNPORTED_FLAGS = {
-    "enhanced_unk_localization": "A7 (EUL)",
-    "benchmark": "the BENCHMARK_MODE cache and benchmark sweeps",
+    "benchmark": "A5b (the BENCHMARK_MODE cache and benchmark sweeps; they follow A7b, "
+                 "since they sweep the cluster methods)",
     "data_parallel": "A12 (multi-GPU)",
     "export_bundle": "A11 (serving/export)",
     "model_path": "A11 (checkpoints)",
-    "dump_fusion_scores": "the fusion score dump",
     "compile_cache": "none: the eager port compiles nothing ahead of time",
 }
 
@@ -98,8 +97,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_use_values_before_sigmoid", dest="use_values_before_sigmoid",
                    action="store_false")
     p.add_argument("--fusion_strategy", default="none", choices=["and", "or", "score", "none"])
-    p.add_argument("--dump_fusion_scores", default="", help="not ported")
-    p.add_argument("--enhanced_unk_localization", action="store_true", help="not ported")
+    p.add_argument("--dump_fusion_scores", default="",
+                   help="write each fusion member's per-box INDness on the first OoD "
+                        "dataset to this .npz")
+    p.add_argument("--enhanced_unk_localization", action="store_true",
+                   help="add enhanced unknown localization (EUL) proposals as unknowns")
     p.add_argument("--visualize_oods", action="store_true")
     p.add_argument("--temperature_energy", type=float, default=1.0)
     p.add_argument("--temperature_odin", type=float, default=1000.0)
@@ -260,13 +262,28 @@ def run_eval(args, detector, method, logger) -> List[Dict]:
         vis_dir = (str(C.RESULTS_PATH / "visualizations" / f"{args.name}_{ds.yaml_name}")
                    if args.visualize_oods else None)
         metrics = evaluate_method(detector, _batches(args, ds), method, known, names,
-                                  conf_thr_test=args.conf_thr_test, logger=logger,
-                                  visualize_dir=vis_dir)
+                                  conf_thr_test=args.conf_thr_test,
+                                  enhanced_unk_localization=args.enhanced_unk_localization,
+                                  logger=logger, visualize_dir=vis_dir)
         logger.info("%s -> %s", ds.yaml_name, metrics)
         fill_dataset_results(row, _dataset_key(ds.yaml_name), metrics, args.owod_task_ood)
     row = finalize_row(row, f"{args.model_version}{args.model}", vars(args))
     row["custom_hyp"] = str(hyperparams_to_dict(CUSTOM_HYP))  # the port's tree, not the JAX one
     return [row]
+
+
+def dump_fusion_scores(args, detector, method, logger) -> None:
+    """Each fusion member's per-box INDness, the fused decision, classes and
+    confidences on the first OoD dataset -> ``np.savez`` at
+    --dump_fusion_scores (the JAX CLI's ood_eval.py:380-394)."""
+    if not isinstance(method, FusionOODMethod):
+        raise ValueError("--dump_fusion_scores needs a fusion-... method")
+    ds = load_dataset(args, args.ood_datasets[0], args.ood_split, args.owod_task_ood)
+    data = collect_fusion_member_indness(detector, _batches(args, ds), method,
+                                         conf_thr_test=args.conf_thr_test)
+    Path(args.dump_fusion_scores).parent.mkdir(parents=True, exist_ok=True)
+    np.savez(args.dump_fusion_scores, **data)
+    logger.info("fusion member scores -> %s", args.dump_fusion_scores)
 
 
 def main(argv=None) -> List[Dict]:
@@ -291,6 +308,8 @@ def main(argv=None) -> List[Dict]:
     val_batches = (_batches(args, load_dataset(args, args.ind_dataset, "val", args.owod_task_ind))
                    if args.which_split in ("val", "train_val") else None)
     configure_ind(args, detector, method, _batches(args, ind), log, val_batches=val_batches)
+    if args.dump_fusion_scores:
+        dump_fusion_scores(args, detector, method, log)
     rows = run_eval(args, detector, method, log)
     out = append_results(rows, C.RESULTS_PATH, args.name)
     log.info("results written to %s", out)

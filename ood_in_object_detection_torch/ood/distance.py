@@ -159,6 +159,25 @@ def min_group_distances(feats: torch.Tensor, centroids: torch.Tensor,
 min_group_distances.launches = 0
 
 
+def distances_to_all_class_centroids_stride0(feats: torch.Tensor, bank: CentroidBank,
+                                             metric: str) -> torch.Tensor:
+    """(N, D) -> (N, nc) min distance of each row to every class's stride-0
+    centroids, inf where a class has none: the EUL proposals' rank
+    (reference ood_utils.py:1917-1998). Cosine and l2 are kernel K3's
+    contract with one group per class; cosine normalises both sides first,
+    as sklearn does. L1 has no kernel and stays plain on every device."""
+    cents = bank.centroids[:, 0]                                   # (nc, Kmax, D)
+    kmask = torch.arange(cents.shape[1], device=cents.device)[None, :] < bank.count[:, 0, None]
+    if metric in ("cosine", "l2", "euclidean"):
+        if metric == "cosine":
+            feats, cents = l2_normalize_rows(feats), l2_normalize_rows(cents)
+        return min_group_distances(feats.float().contiguous(), cents.contiguous(),
+                                   kmask.contiguous(), metric)
+    nc, kmax, d = cents.shape
+    dmat = pairwise_distance(feats, cents.reshape(nc * kmax, d), metric).reshape(-1, nc, kmax)
+    return torch.where(kmask[None], dmat, torch.full_like(dmat, float("inf"))).amin(dim=-1)
+
+
 def min_distance_to_class_centroids(feats: torch.Tensor, cls: torch.Tensor,
                                     stride_idx: torch.Tensor, bank: CentroidBank,
                                     metric: str) -> torch.Tensor:

@@ -153,6 +153,7 @@ class DistanceOODMethod:
     thresholds: Optional[List[List[Optional[float]]]] = None
     min_dist: Optional[np.ndarray] = None
     max_dist: Optional[np.ndarray] = None
+    unk_prop_thr: Optional[float] = None
     _banks: Dict[str, CentroidBank] = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
@@ -237,6 +238,31 @@ class DistanceOODMethod:
         self.thresholds = generate_thresholds_per_class_per_stride(
             ind_scores, tpr, is_distance=True)
         return self.thresholds
+
+    def generate_unk_prop_thr(self, acts, tpr: float, rank_op: str = "entropy"):
+        """The threshold that gates EUL's unknown proposals: a percentile
+        ('lower') of the rank-reduced distances of the InD stride-0
+        activations to every class's stride-0 clusters (reference
+        ood_utils.py:1917-2023)."""
+        from .unknown import rank_distances
+
+        all_scores = []
+        for c, per_cls in enumerate(acts):
+            a = per_cls[0]
+            if not isinstance(a, np.ndarray) or a.size == 0:
+                continue
+            feats = _cpu(self.transform(a, c, 0))
+            rows = [pairwise_distance(_cpu(cl), feats, self.metric).numpy().min(axis=0)
+                    for cl in (row[0] for row in self.clusters)
+                    if isinstance(cl, np.ndarray) and cl.ndim == 2 and cl.size]
+            if rows:
+                all_scores.append(rank_distances(np.stack(rows), rank_op))
+        if not all_scores:
+            self.unk_prop_thr = None
+            return None
+        scores = np.concatenate(all_scores)
+        self.unk_prop_thr = float(np.percentile(scores, 100 * tpr, method="lower"))
+        return self.unk_prop_thr
 
     def packed_thresholds(self, device="cpu") -> torch.Tensor:
         return torch.as_tensor(pack_thresholds_per_class_per_stride(self.thresholds),

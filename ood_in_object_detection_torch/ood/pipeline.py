@@ -7,14 +7,22 @@ around ``Detector.predict``:
   Hungarian-match predictions to targets (ood_utils.py:233-292) and bucket
   the matched boxes' taps per class (logits) or per (class, stride) (neck
   features, 'valid_preds_one_stride' by default).
-- ``fit_ind_pipeline``: clusters -> InD scores -> thresholds
-  (reference ood_evaluation.py:398-644).
+- ``fit_ind_pipeline``: clusters -> InD scores -> thresholds (and the
+  unknown-proposal threshold when it gates EUL) (reference
+  ood_evaluation.py:398-644).
 - ``evaluate_method``: per batch decide InD/OoD, relabel OoD boxes as the
-  unknown class, and run the OWOD protocol (ood_utils.py:428-582).
+  unknown class, optionally append enhanced unknown localisation (EUL)
+  proposals as unknowns, and run the OWOD protocol (ood_utils.py:428-582).
+  EUL's front end runs on P3's device (``unknown.eul_frontend_batched``),
+  connected components and selection on the host, and the proposals' rank
+  on the device: their 1x1 RoIAlign on P3 (kernel K2) and their distances
+  to the classes' stride-0 centroids (kernel K3).
+- ``collect_fusion_member_indness``: per-box INDness of each fusion member
+  (the CLI's --dump_fusion_scores).
 
 Not ported yet, and each raises when asked for: the launch/consume overlap
 (it relies on JAX's asynchronous dispatch), the BENCHMARK_MODE prediction
-cache, device meshes, enhanced unknown localisation (EUL) and SDR.
+cache, device meshes and SDR.
 """
 
 from __future__ import annotations
@@ -31,12 +39,19 @@ from ..engine import Detector, PredictOutput
 from ..eval.owod_protocol import UNKNOWN_CLASS_INDEX, compute_metrics
 from ..ops.nms import Detections
 from ..ops.roi_align import all_level_roi, roi_align_1x1_batched_level
-from .distance import l2_normalize_rows
+from .distance import (PAIRWISE_METRICS, CentroidBank, build_centroid_bank,
+                       distances_to_all_class_centroids_stride0, l2_normalize_rows,
+                       pairwise_distance)
 from .matching import match_predictions_to_targets
 from .methods import DistanceOODMethod, FusionOODMethod, LogitsOODMethod
 from .scores import table_lookup
+from .thresholds import pack_thresholds_per_class_per_stride
+from .unknown import (eul_frontend_batched, finish_unknown_proposals, rank_distances,
+                      unknown_candidates_for_image)
 
 log = logging.getLogger(__name__)
+
+UNK_PROPOSAL_CONF = 0.150001  # reference ood_utils.py:530
 
 
 def _np(x) -> np.ndarray:
@@ -49,11 +64,9 @@ def _np(x) -> np.ndarray:
     return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
-def _check_unported(mesh=None, enhanced_unk_localization: bool = False) -> None:
+def _check_unported(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError("device meshes are not ported (ROADMAP.md A12, multi-GPU)")
-    if enhanced_unk_localization:
-        raise NotImplementedError("enhanced unknown localisation is not ported (ROADMAP.md A7)")
     if CUSTOM_HYP.BENCHMARK_MODE:
         raise NotImplementedError("the BENCHMARK_MODE prediction cache is not ported "
                                   "(ROADMAP.md)")
@@ -197,13 +210,13 @@ def extract_ind_activations(detector: Detector, batches, method,
 def fit_ind_pipeline(method, activations: Dict[int, object], tpr: float = 0.95,
                      logger=None) -> None:
     """Clusters (distance) -> InD scores -> thresholds for every leaf."""
-    if CUSTOM_HYP.unk.rank.USE_UNK_PROPOSALS_THR:
-        raise NotImplementedError("unknown-proposal thresholds belong to EUL (ROADMAP.md A7)")
     for m in _leaf_methods(method):
         acts = activations[id(m)]
         if isinstance(m, DistanceOODMethod):
             m.generate_clusters(acts)
         m.generate_thresholds(m.compute_scores_from_activations(acts), tpr)
+        if isinstance(m, DistanceOODMethod) and CUSTOM_HYP.unk.rank.USE_UNK_PROPOSALS_THR:
+            m.generate_unk_prop_thr(acts, tpr, CUSTOM_HYP.unk.rank.RANK_BOXES_OPERATION)
 
 
 def distance_features(method: DistanceOODMethod, out: PredictOutput, neck_ch):
@@ -261,13 +274,22 @@ def evaluate_method(detector: Detector, batches, method, known_classes: Sequence
                     visualize_dir: Optional[str] = None, visualize_batches: int = 2,
                     mesh=None) -> Dict[str, float]:
     """Full metric loop (reference ood_utils.py:428-582), one batch at a
-    time; OoD boxes are relabelled as the unknown class."""
-    _check_unported(mesh, enhanced_unk_localization)
+    time; OoD boxes are relabelled as the unknown class. With
+    ``enhanced_unk_localization`` each image also gets the EUL proposals of
+    the first distance method, as unknowns at confidence UNK_PROPOSAL_CONF
+    (ood_utils.py:526-532)."""
+    _check_unported(mesh)
     logger = logger or log
     neck_ch = detector.neck_channels()
     step = _predict_step(detector, conf_thr_test)
     all_preds, all_targets = [], []
     known_arr = np.asarray(list(known_classes))
+    if enhanced_unk_localization:
+        dms = [m for m in _leaf_methods(method) if isinstance(m, DistanceOODMethod)]
+        if not dms:
+            raise ValueError("EUL needs a distance method (it ranks by centroid distance)")
+        dm = dms[0]
+        rank_bank = _stride0_rank_bank(dm, neck_ch[0], detector.device)
     for batch_idx, batch in enumerate(batches):
         out = step(batch["images"])
         decisions = _np(_decisions_for_method(method, out, neck_ch))
@@ -280,15 +302,25 @@ def evaluate_method(detector: Detector, batches, method, known_classes: Sequence
         boxes, confs = _np(out.det.boxes), _np(out.det.conf)
         cls, valid = _np(out.det.cls), _np(out.det.valid)
         bmask = batch.get("batch_mask", np.ones(len(boxes), bool))
+        eul = {}
+        if enhanced_unk_localization:
+            pred_by_img = {i: boxes[i, : int(valid[i].sum())].astype(np.float64)
+                           for i in range(len(boxes)) if bmask[i]}
+            eul = eul_proposals_batch(dm, rank_bank, out.p3, batch["ratio_pad"], pred_by_img)
         for i in range(len(boxes)):
             if not bmask[i]:
                 continue
             n = int(valid[i].sum())
+            b = boxes[i, :n].astype(np.float64)
             c = cls[i, :n].astype(np.float64)
             c = np.where(decisions[i, :n] == 0, float(UNKNOWN_CLASS_INDEX), c)
-            all_preds.append(dict(img_name=batch["im_names"][i],
-                                  bboxes=boxes[i, :n].astype(np.float64), cls=c,
-                                  conf=confs[i, :n].astype(np.float64)))
+            f = confs[i, :n].astype(np.float64)
+            props = eul[i][0] if i in eul else ()
+            if len(props):
+                b = np.concatenate([b, props.astype(np.float64)])
+                c = np.concatenate([c, np.full(len(props), float(UNKNOWN_CLASS_INDEX))])
+                f = np.concatenate([f, np.full(len(props), UNK_PROPOSAL_CONF)])
+            all_preds.append(dict(img_name=batch["im_names"][i], bboxes=b, cls=c, conf=f))
             tgt_m = batch["gt_mask"][i]
             tcls = batch["gt_labels"][i][tgt_m].astype(np.float64)
             tcls = np.where(np.isin(tcls, known_arr), tcls, float(UNKNOWN_CLASS_INDEX))
@@ -297,3 +329,170 @@ def evaluate_method(detector: Detector, batches, method, known_classes: Sequence
                                     cls=tcls))
     return compute_metrics(all_preds, all_targets, list(class_names),
                            list(known_classes), logger)
+
+
+def _rank_from_matrix(mat: np.ndarray, row_cls: np.ndarray):
+    """Reduce a (n_valid_classes, n_props) min-distance matrix per the
+    configured rank op (reference ood_utils.py:1056-1092); the gated 'min'
+    gives the raw minimum (no x100) and the closest class id."""
+    op = CUSTOM_HYP.unk.rank.RANK_BOXES_OPERATION
+    if op == "min" and CUSTOM_HYP.unk.rank.USE_OOD_THR_TO_REMOVE_PROPS:
+        return mat.min(axis=0), np.asarray(row_cls)[mat.argmin(axis=0)]
+    return rank_distances(mat, op)
+
+
+def _make_rank_fn(dm: DistanceOODMethod, p3_img: torch.Tensor):
+    """Per-image rank fn over one (H, W, C) map, for stride-0 clusters that
+    ``_stride0_rank_bank`` refuses (none at all gives zeros): proposals in
+    padded-ftmap cells -> 1x1 RoIAlign on the map -> L2-normalised ->
+    distance to each class's stride-0 clusters -> ``_rank_from_matrix``."""
+    def fn(props_ftmap: np.ndarray):
+        boxes = torch.as_tensor(np.asarray(props_ftmap, np.float32), device=p3_img.device)
+        feats = roi_align_1x1_batched_level(p3_img.float().contiguous()[None], boxes[None],
+                                            1.0, samples=4)[0]
+        tf = l2_normalize_rows(feats)
+        rows, row_cls = [], []
+        for c, per_cls in enumerate(dm.clusters):
+            cl = per_cls[0]
+            if isinstance(cl, np.ndarray) and cl.ndim == 2 and cl.size:
+                cents = torch.as_tensor(np.asarray(cl, np.float32), device=tf.device)
+                rows.append(_np(pairwise_distance(cents, tf, dm.metric)).min(axis=0))
+                row_cls.append(c)
+        if not rows:
+            return np.zeros(len(props_ftmap), np.float32)
+        return _rank_from_matrix(np.stack(rows), np.asarray(row_cls))
+
+    return fn
+
+
+def _stride0_rank_bank(dm: DistanceOODMethod, p3_channels: int, device):
+    """(the classes' stride-0 centroids as a one-stride bank on ``device``,
+    the valid class ids as a tensor there) for the batched rank, or None
+    when the method's stride-0 clusters cannot feed it (none, or a width
+    other than P3's channel count)."""
+    if dm.metric not in PAIRWISE_METRICS:
+        return None
+    rows = [c for c, per_cls in enumerate(dm.clusters)
+            if isinstance(per_cls[0], np.ndarray) and per_cls[0].ndim == 2 and per_cls[0].size]
+    if not rows:
+        return None
+    d0 = dm.clusters[rows[0]][0].shape[1]
+    if d0 != p3_channels or any(dm.clusters[c][0].shape[1] != d0 for c in rows):
+        return None
+    bank = build_centroid_bank([[per_cls[0]] for per_cls in dm.clusters], d0, num_strides=1,
+                               device=device)
+    return bank, torch.as_tensor(rows, device=device)
+
+
+def rank_reduce_batched(p3: torch.Tensor, props: torch.Tensor, bank: CentroidBank,
+                        rows: torch.Tensor, metric: str, op: str, gated: bool):
+    """Rank scores (B, n) of proposals (B, n, 4) in padded-ftmap cells on the
+    (B, H, W, C) map, and with the gated 'min' the closest class ids:
+    each proposal's 1x1 RoIAlign on the map (4 x 4 samples, kernel K2; a
+    bf16 map is upcast, as JAX's bilinear taps compute in f32), its
+    L2-normalised feature's distances to every class's stride-0 centroids
+    (kernel K3), the valid classes' columns reduced per ``op``
+    (reference ood_utils.py:1056-1092; ``rank_distances``' formulas)."""
+    feats = roi_align_1x1_batched_level(p3.float().contiguous(), props, 1.0, samples=4)
+    b, n, c = feats.shape
+    tf = l2_normalize_rows(feats.reshape(b * n, c))
+    sub = distances_to_all_class_centroids_stride0(tf, bank, metric).reshape(b, n, -1)[:, :, rows]
+    if op == "min" and gated:
+        vals, idx = sub.min(dim=-1)
+        return vals, rows[idx]
+    if op == "min":
+        return sub.amin(dim=-1) * 100  # reference compensation (:1078)
+    if op == "mean":
+        return sub.mean(dim=-1)
+    if op == "max":
+        return sub.amax(dim=-1)
+    if op == "sum":
+        return sub.sum(dim=-1)
+    if op == "geometric_mean":
+        return torch.exp(torch.log(sub).mean(dim=-1))
+    if op == "entropy":
+        p = sub / sub.sum(dim=-1, keepdim=True)
+        return -torch.where(p > 0, p * torch.log(p), torch.zeros_like(p)).sum(dim=-1)
+    raise NotImplementedError(op)
+
+
+def eul_proposals_batch(dm: DistanceOODMethod, rank_bank, p3: torch.Tensor, ratio_pads,
+                        pred_boxes_by_img: Dict[int, np.ndarray]) -> Dict[int, tuple]:
+    """EUL for one batch -> {image: (proposals xyxy in image pixels, decisions
+    (all 0 = unknown), rank scores or None)}.
+
+    The front end on P3's device (``eul_frontend_batched``; the host
+    summarizer and thresholder where the configuration has no device
+    path), connected components and heuristics on the host for every image,
+    ONE batched rank on the device (``rank_reduce_batched``; per-image
+    ``_make_rank_fn`` where the bank was refused), then per-image
+    selection (reference ood_utils.py:641-1174)."""
+    hyp = CUSTOM_HYP.unk
+    padded_hw = tuple(p3.shape[1:3])
+    fe = eul_frontend_batched(p3, ratio_pads)
+    p3_host = _np(p3) if fe is None else None
+    cand = {i: unknown_candidates_for_image(
+                None if fe is not None else p3_host[i], ratio_pads[i], pb,
+                precomputed=fe[i] if fe is not None else None, padded_hw=padded_hw)
+            for i, pb in pred_boxes_by_img.items()}
+    ranks = {}
+    nmax = max((len(c) for c in cand.values()), default=0)
+    if hyp.USE_HEURISTICS and hyp.RANK_BOXES and nmax:
+        if rank_bank is None:
+            ranks = {i: _make_rank_fn(dm, p3[i])(c) for i, c in cand.items() if len(c)}
+        else:
+            props = np.zeros((p3.shape[0], nmax, 4), np.float32)
+            for i, c in cand.items():
+                props[i, : len(c)] = c
+            gated = bool(hyp.rank.USE_OOD_THR_TO_REMOVE_PROPS)
+            red = rank_reduce_batched(p3, torch.as_tensor(props, device=p3.device), *rank_bank,
+                                      dm.metric, hyp.rank.RANK_BOXES_OPERATION, gated)
+            if isinstance(red, tuple):
+                scores, closest = _np(red[0]), _np(red[1])
+                ranks = {i: (scores[i, : len(c)], closest[i, : len(c)])
+                         for i, c in cand.items() if len(c)}
+            else:
+                scores = _np(red)
+                ranks = {i: scores[i, : len(c)] for i, c in cand.items() if len(c)}
+    cls_thr = None
+    if hyp.rank.USE_OOD_THR_TO_REMOVE_PROPS and dm.thresholds is not None:
+        # stride 0; an unfit class gets no gate
+        cls_thr = np.nan_to_num(np.asarray(
+            pack_thresholds_per_class_per_stride(dm.thresholds))[:, 0], nan=np.inf)
+    return {i: finish_unknown_proposals(c, ranks.get(i), unk_prop_thr=dm.unk_prop_thr,
+                                        class_thresholds=cls_thr)
+            for i, c in cand.items()}
+
+
+def collect_fusion_member_indness(detector: Detector, batches, fusion,
+                                  conf_thr_test: float = 0.15, mesh=None) -> Dict[str, np.ndarray]:
+    """Per-box INDness of every member of a fitted fusion method and the
+    fused decision, over all valid boxes (the score-fusion figure of the
+    reference's score_fusion_plot.ipynb) -> {'member_names', 'indness'
+    (M, N), 'decision' (N,), 'cls' (N,), 'conf' (N,)}."""
+    if not isinstance(fusion, FusionOODMethod):
+        raise ValueError("collect_fusion_member_indness needs a fusion method")
+    _check_unported(mesh)
+    neck_ch = detector.neck_channels()
+    step = _predict_step(detector, conf_thr_test)
+    per_member: List[List[np.ndarray]] = [[] for _ in fusion.methods]
+    dec_all, cls_all, conf_all = [], [], []
+    for batch in batches:
+        out = step(batch["images"])
+        member = [_np(_decisions_for_method(m, out, neck_ch, want_scores=True))
+                  for m in fusion.methods]
+        fused = _np(_decisions_for_method(fusion, out, neck_ch))
+        valid = _np(out.det.valid)
+        keep = valid & batch.get("batch_mask", np.ones(len(valid), bool))[:, None]
+        for mi, arr in enumerate(member):
+            per_member[mi].append(arr[keep])
+        dec_all.append(fused[keep])
+        cls_all.append(_np(out.det.cls)[keep])
+        conf_all.append(_np(out.det.conf)[keep])
+    return {
+        "member_names": np.asarray([m.name for m in fusion.methods]),
+        "indness": np.stack([np.concatenate(x) for x in per_member]),
+        "decision": np.concatenate(dec_all),
+        "cls": np.concatenate(cls_all),
+        "conf": np.concatenate(conf_all),
+    }

@@ -155,6 +155,19 @@ roi_contract.launches = 0
 roi_contract.launches_bf16 = 0
 
 
+def box_axis_weights(fmap_hw: Tuple[int, int], boxes_xyxy: torch.Tensor, spatial_scale: float,
+                     samples: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1x1 RoIAlign hat weights of boxes on an (H, W) map -> wx (..., W),
+    wy (..., H); box sides are floored at one cell (torchvision,
+    aligned=False)."""
+    h, w = fmap_hw
+    bx = boxes_xyxy * spatial_scale
+    x1, y1 = bx[..., 0], bx[..., 1]
+    bw = torch.clamp(bx[..., 2] - x1, min=1.0)
+    bh = torch.clamp(bx[..., 3] - y1, min=1.0)
+    return _axis_weights(x1, bw, w, samples), _axis_weights(y1, bh, h, samples)
+
+
 def level_axis_weights(fmap_hw: Tuple[int, int], boxes_xyxy: torch.Tensor,
                        anchor_idx: torch.Tensor, level_idx: torch.Tensor, level: int,
                        offset: int, img_w: int, samples: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -163,12 +176,7 @@ def level_axis_weights(fmap_hw: Tuple[int, int], boxes_xyxy: torch.Tensor,
     supply (a box routed to another level; an anchor of another level) are
     zero, so the contraction skips them; their output is never selected."""
     h, w = fmap_hw
-    bx = boxes_xyxy * (w / img_w)  # width ratio, predict.py:69
-    x1, y1 = bx[..., 0], bx[..., 1]
-    bw = torch.clamp(bx[..., 2] - x1, min=1.0)
-    bh = torch.clamp(bx[..., 3] - y1, min=1.0)
-    wx = _axis_weights(x1, bw, w, samples)
-    wy = _axis_weights(y1, bh, h, samples)
+    wx, wy = box_axis_weights(fmap_hw, boxes_xyxy, w / img_w, samples)  # width ratio, predict.py:69
     local = torch.clamp(anchor_idx - offset, 0, h * w - 1)
     ex_wx = F.one_hot(local % w, w).to(torch.float32)
     ex_wy = F.one_hot(local // w, h).to(torch.float32)
@@ -210,14 +218,8 @@ def roi_and_exact_batched(
 def roi_align_1x1_batched_level(fmap: torch.Tensor, boxes_xyxy: torch.Tensor,
                                 spatial_scale: float, samples: int = 0) -> torch.Tensor:
     """Single-level 1x1 RoIAlign of every box: (B, H, W, C), (B, N, 4) -> (B, N, C)."""
-    _, h, w, _ = fmap.shape
-    bx = boxes_xyxy * spatial_scale
-    x1, y1 = bx[..., 0], bx[..., 1]
-    bw = torch.clamp(bx[..., 2] - x1, min=1.0)
-    bh = torch.clamp(bx[..., 3] - y1, min=1.0)
-    wx = _axis_weights(x1, bw, w, samples).contiguous()
-    wy = _axis_weights(y1, bh, h, samples).contiguous()
-    return roi_contract(fmap, wx, wy).to(fmap.dtype)
+    wx, wy = box_axis_weights(fmap.shape[1:3], boxes_xyxy, spatial_scale, samples)
+    return roi_contract(fmap, wx.contiguous(), wy.contiguous()).to(fmap.dtype)
 
 
 def all_level_roi(fmaps: Sequence[torch.Tensor], boxes_xyxy: torch.Tensor,

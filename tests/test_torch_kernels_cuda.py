@@ -365,6 +365,69 @@ def test_min_group_distance_kernel_matches_plain(dev, metric, n, g, k, d):
                                atol=1e-3 if metric == "l2" else 1e-5)
 
 
+@pytest.mark.parametrize("n", [1, 37, 200])
+def test_roi_contract_kernel_eul_rank(dev, n):
+    """K2 as EUL's rank calls it: n proposals an image in padded-ftmap cells
+    on an (8, 80, 80, 256) P3, 4 x 4 fixed hats, spatial_scale 1.0."""
+    rng = np.random.default_rng(n)
+    f = torch.tensor(rng.normal(size=(8, 80, 80, 256)), dtype=torch.float32, device=dev)
+    xy = rng.uniform(0, 76, (8, n, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(1, 40, (8, n, 2)), 80)], -1)
+    boxes = torch.tensor(boxes, dtype=torch.float32, device=dev)
+    before = R.roi_contract.launches
+    got = R.roi_align_1x1_batched_level(f, boxes, 1.0, samples=4)
+    torch.cuda.synchronize()
+    assert R.roi_contract.launches == before + 1
+    ref = R.roi_align_1x1_batched_level(f.cpu(), boxes.cpu(), 1.0, samples=4)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+@pytest.mark.parametrize("n", [8, 296, 2400])
+def test_min_group_distance_kernel_eul_rank(dev, metric, n):
+    """K3 as EUL's rank calls it (distances_to_all_class_centroids_stride0):
+    G 20 classes, K 1 centroid, D 256, three classes without a centroid."""
+    rng = np.random.default_rng(n)
+    x = D.l2_normalize_rows(torch.tensor(rng.normal(size=(n, 256)), dtype=torch.float32,
+                                         device=dev))
+    cents = torch.tensor(rng.normal(size=(20, 1, 256)), dtype=torch.float32, device=dev)
+    count = torch.ones((20, 1), dtype=torch.int64, device=dev)
+    count[[3, 11, 19]] = 0
+    bank = D.CentroidBank(cents[:, None], count)
+    before = D.min_group_distances.launches
+    got = D.distances_to_all_class_centroids_stride0(x, bank, metric)
+    torch.cuda.synchronize()
+    assert D.min_group_distances.launches == before + 1
+    ref = D.distances_to_all_class_centroids_stride0(x.cpu(), D.CentroidBank(
+        cents[:, None].cpu(), count.cpu()), metric)
+    assert torch.equal(torch.isinf(got).cpu(), torch.isinf(ref)) and torch.isinf(ref[:, 3]).all()
+    fin = torch.isfinite(ref)
+    torch.testing.assert_close(got.cpu()[fin], ref[fin], rtol=1e-5,
+                               atol=1e-3 if metric == "l2" else 1e-5)
+
+
+def test_eul_frontend_on_card_matches_cpu(dev):
+    """EUL's front end (saliency, recursive Otsu, masks) on the card against
+    the same map through the CPU: thresholds within 1e-5 of the saliency's
+    range, at most 0.1 % of mask cells differ (a cell within rounding of a
+    threshold may change sides)."""
+    from ood_in_object_detection_torch.ood import unknown_device as U
+
+    rng = np.random.default_rng(3)
+    f = torch.tensor(rng.normal(size=(8, 80, 80, 256)), dtype=torch.float32)
+    f[:, 20:40, 30:60] += 1.5
+    pads = torch.tensor([[0, 0], [0, 10]] * 4)
+    kw = dict(summarizer="mean_absolute_deviation_of_ftmaps", method="recursive_otsu",
+              num_thresholds=3)
+    gm, gt = U.eul_frontend_masks(f.to(dev), pads.to(dev), **kw)
+    cm, ct = U.eul_frontend_masks(f, pads, **kw)
+    sal, _ = U.eul_frontend(f, pads, **kw)
+    assert gm.is_cuda and torch.isfinite(ct).all()
+    span = float(sal.max() - sal.min())
+    torch.testing.assert_close(gt.cpu(), ct, rtol=0, atol=1e-5 * span)
+    assert float((gm.cpu() != cm).float().mean()) <= 1e-3
+
+
 # the stem probe ladder's kernels (ops/stem_parts.py): odd widths (a partial
 # 16-pixel strip), one row tile, several tiles with a partial last one, B=1
 

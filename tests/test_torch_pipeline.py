@@ -28,6 +28,7 @@ from ood_in_object_detection_torch.ops import nms as tnms
 from ood_in_object_detection_torch.ops.boxes import box_iou
 from ood_in_object_detection_torch.ops.fused_detect import select_candidates
 from test_torch_model import shared_weights
+from test_torch_unknown import _both_hyp
 
 IMG, NC, IOU = 96, 2, 0.7
 KNOWN, NAMES = [0, 1], ["c0", "c1", "unknown"]
@@ -142,7 +143,7 @@ def _flat(thresholds):
     return np.asarray(out, np.float64)
 
 
-@pytest.mark.parametrize("name", ["MSP", "Cosine_cl_stride"])
+@pytest.mark.parametrize("name", ["MSP", "Cosine_cl_stride", "L1_cl_stride"])
 def test_extract_fit_evaluate_match_jax(fx, name):
     jm, tm = _methods(name)
     ind, ood = fx["batches"]["ind"], fx["batches"]["ood"]
@@ -194,29 +195,209 @@ def test_extract_fit_evaluate_match_jax(fx, name):
     assert tres == jres
 
 
-def test_cli_runs_on_fixture(fx, tmp_path, monkeypatch):
-    from ood_in_object_detection_torch import constants as C
-    from ood_in_object_detection_torch.cli import ood_eval
-
-    root = fx["root"]
+def _write_yamls(root):
     for split in ("ind", "ood"):
         (root / f"{split}.txt").write_text("\n".join(
             f"./{split}/images/{p.name}" for p in sorted((root / split / "images").iterdir())))
         (root / f"{split}.yaml").write_text(
             f"path: .\ntrain: {split}.txt\nval: {split}.txt\nnames:\n  0: c0\n  1: c1\n")
+
+
+def _cli_args(fx, *extra):
+    root = fx["root"]
+    _write_yamls(root)
+    return ["--model", "n", "--device", "cpu",
+            "--ind_dataset", str(root / "ind.yaml"), "--ood_datasets", str(root / "ood.yaml"),
+            "--conf_thr_train", str(CONF_TRAIN), "--conf_thr_test", str(CONF_TEST),
+            "--img_size", str(IMG), "--batch_size", "4", "--name", "torchsmoke", *extra]
+
+
+def test_cli_runs_on_fixture(fx, tmp_path, monkeypatch):
+    from ood_in_object_detection_torch import constants as C
+    from ood_in_object_detection_torch.cli import ood_eval
+
     monkeypatch.setattr(C, "RESULTS_PATH", tmp_path / "results")
     monkeypatch.setattr(C, "STORAGE_PATH", tmp_path / "storage")
     monkeypatch.setattr(ood_eval, "load_detector", lambda args, default_nc=20: fx["tdet"])
-    rows = ood_eval.main([
-        "--ood_method", "Cosine_cl_stride", "--model", "n", "--device", "cpu",
-        "--ind_dataset", str(root / "ind.yaml"), "--ood_datasets", str(root / "ood.yaml"),
-        "--conf_thr_train", str(CONF_TRAIN), "--conf_thr_test", str(CONF_TEST),
-        "--img_size", str(IMG), "--batch_size", "4", "--name", "torchsmoke"])
+    rows = ood_eval.main(["--ood_method", "Cosine_cl_stride", *_cli_args(fx)])
     assert len(rows) == 1 and rows[0]["Method"] == "Cosine_cl_stride"
     assert len(list((tmp_path / "results").glob("*torchsmoke.csv"))) == 1
 
 
-@pytest.mark.parametrize("flag", [["--enhanced_unk_localization"],
+def _run_both_clis(fx, tmp_path, monkeypatch, argv):
+    """The port's CLI and the JAX package's on the same fixture, each with
+    its own detector (shared weights), storage and results -> two rows.
+    '@' in an argument becomes the package's key; the JAX CLI's --device is
+    an index, and its detector is given, so it gets none."""
+    from ood_in_object_detection_torch import constants as TC
+    from ood_in_object_detection_torch.cli import ood_eval as tcli
+    from ood_in_object_detection_tpu import constants as JC
+    from ood_in_object_detection_tpu.cli import ood_eval as jcli
+
+    rows = {}
+    for key, C, cli, det in (("torch", TC, tcli, fx["tdet"]), ("jax", JC, jcli, fx["jdet"])):
+        monkeypatch.setattr(C, "RESULTS_PATH", tmp_path / key / "results")
+        monkeypatch.setattr(C, "STORAGE_PATH", tmp_path / key / "storage")
+        monkeypatch.setattr(cli, "load_detector", lambda args, default_nc=20, d=det: d)
+        run = cli.run_eval
+        monkeypatch.setattr(cli, "run_eval", lambda *a, run=run, key=key, **k:
+                            rows.setdefault(key, run(*a, **k)))
+        args = [a.replace("@", key) for a in argv]
+        if key == "jax":
+            i = args.index("--device")
+            args = args[:i] + args[i + 2:]
+        cli.main(args)
+    return rows["torch"], rows["jax"]
+
+
+def test_cli_eul_matches_jax(fx, tmp_path, monkeypatch):
+    """--enhanced_unk_localization --device cpu: the same OWOD columns as
+    the JAX CLI on the same weights and fitted state."""
+    from ood_in_object_detection_torch.eval.results_writer import dataset_result_columns
+
+    (trow,), (jrow,) = _run_both_clis(fx, tmp_path, monkeypatch, [
+        "--ood_method", "Cosine_cl_stride", "--enhanced_unk_localization", *_cli_args(fx)])
+    cols = dataset_result_columns("coco_ood")
+    assert "U-AP" in " ".join(cols)
+    np.testing.assert_equal({k: trow[k] for k in cols}, {k: jrow[k] for k in cols})
+    assert "True" in trow["args"] and "enhanced_unk_localization" in trow["args"]
+
+
+def test_cli_dump_fusion_scores_matches_jax(fx, tmp_path, monkeypatch):
+    """--dump_fusion_scores writes the JAX CLI's arrays: member INDness
+    within 1e-4 (f32 forwards of two packages), decisions, classes equal."""
+    _run_both_clis(fx, tmp_path, monkeypatch, [
+        "--ood_method", "fusion-MSP-Cosine_cl_stride", "--fusion_strategy", "score",
+        "--dump_fusion_scores", str(tmp_path / "@" / "fusion.npz"), *_cli_args(fx)])
+    t, j = (np.load(tmp_path / k / "fusion.npz") for k in ("torch", "jax"))
+    assert sorted(t.files) == sorted(j.files) == ["cls", "conf", "decision", "indness",
+                                                  "member_names"]
+    np.testing.assert_array_equal(t["member_names"], j["member_names"])
+    assert t["indness"].shape == j["indness"].shape and t["indness"].shape[1] > 10
+    np.testing.assert_allclose(t["indness"], j["indness"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(t["conf"], j["conf"], rtol=1e-4, atol=1e-6)
+    for k in ("decision", "cls"):
+        np.testing.assert_array_equal(t[k], j[k])
+    assert 0 < t["decision"].sum() < len(t["decision"])
+
+
+@pytest.fixture(scope="module")
+def cos_acts(fx):
+    """Cosine_cl_stride InD activations of both packages on the fixture."""
+    jm, tm = _methods("Cosine_cl_stride")
+    ind = fx["batches"]["ind"]
+    return (jpipe.extract_ind_activations(fx["jdet"], ind, jm, conf_thr_train=CONF_TRAIN)[id(jm)],
+            tpipe.extract_ind_activations(fx["tdet"], ind, tm, conf_thr_train=CONF_TRAIN)[id(tm)])
+
+
+def _eul_props(fx, jm, tm, batch):
+    """One batch's per-image EUL proposals through each package's batch
+    function, as its evaluate_method calls it."""
+    from ood_in_object_detection_tpu.ood.thresholds import pack_thresholds_per_class_per_stride
+    from ood_in_object_detection_tpu.ood.unknown import eul_frontend_batched
+
+    out = {}
+    for key, pipe, det, m in (("jax", jpipe, fx["jdet"], jm), ("torch", tpipe, fx["tdet"], tm)):
+        o = pipe._predict_step(det, CONF_TEST)(batch["images"])
+        boxes, valid = np.asarray(o.det.boxes), np.asarray(o.det.valid)
+        pred = {i: boxes[i, : int(valid[i].sum())].astype(np.float64) for i in range(len(boxes))}
+        if key == "torch":
+            bank = pipe._stride0_rank_bank(m, det.neck_channels()[0], "cpu")
+            out[key] = pipe.eul_proposals_batch(m, bank, o.p3, batch["ratio_pad"], pred)
+            continue
+        cls_thr = None
+        if jpipe.CUSTOM_HYP.unk.rank.USE_OOD_THR_TO_REMOVE_PROPS:
+            cls_thr = np.nan_to_num(np.asarray(pack_thresholds_per_class_per_stride(
+                m.thresholds))[:, 0], nan=np.inf)
+        out[key] = pipe._eul_proposals_batch(
+            m, pipe._stride0_rank_bank(m, det.neck_channels()[0]), o.p3,
+            tuple(o.p3.shape[1:3]), eul_frontend_batched(o.p3, batch["ratio_pad"]),
+            batch["ratio_pad"], pred, cls_thr)
+    return out["torch"], out["jax"]
+
+
+EUL_CASES = {"default": {},
+             "ood_thr_min": dict(USE_OOD_THR_TO_REMOVE_PROPS=True, RANK_BOXES_OPERATION="min"),
+             "unk_prop_thr": dict(USE_UNK_PROPOSALS_THR=True)}
+
+
+@pytest.mark.parametrize("case", list(EUL_CASES))
+def test_eul_evaluate_matches_jax(fx, cos_acts, case):
+    """evaluate_method(..., enhanced_unk_localization=True) for
+    Cosine_cl_stride: per-image proposals (image pixels) and decisions
+    equal, rank scores within 1e-5, OWOD metric dicts equal; the rank
+    options on both packages' CUSTOM_HYP, restored after."""
+    ood = fx["batches"]["ood"]
+    with _both_hyp(rank=EUL_CASES[case]):
+        jm, tm = _methods("Cosine_cl_stride")
+        jpipe.fit_ind_pipeline(jm, {id(jm): cos_acts[0]}, tpr=0.95)
+        tpipe.fit_ind_pipeline(tm, {id(tm): cos_acts[1]}, tpr=0.95)
+        if case == "unk_prop_thr":
+            assert tm.unk_prop_thr is not None
+            np.testing.assert_allclose(tm.unk_prop_thr, jm.unk_prop_thr, rtol=1e-5)
+        else:
+            assert tm.unk_prop_thr is None
+        n_props = 0
+        for batch in ood:
+            got, want = _eul_props(fx, jm, tm, batch)
+            assert got.keys() == want.keys()
+            for i in want:
+                (tp, td, tr), (jp, jd, jr) = got[i], want[i]
+                np.testing.assert_array_equal(tp, jp)
+                np.testing.assert_array_equal(td, jd)
+                np.testing.assert_allclose(tr, jr, rtol=1e-5, atol=1e-6)
+                n_props += len(tp)
+        assert n_props > 0, "EUL proposed nothing: the case checks nothing"
+        jres = jpipe.evaluate_method(fx["jdet"], ood, jm, KNOWN, NAMES, conf_thr_test=CONF_TEST,
+                                     enhanced_unk_localization=True)
+        tres = tpipe.evaluate_method(fx["tdet"], ood, tm, KNOWN, NAMES, conf_thr_test=CONF_TEST,
+                                     enhanced_unk_localization=True)
+    assert set(tres) == {"mAP", "U-AP", "U-F1", "U-PRE", "U-REC", "A-OSE", "WI-08"}
+    assert tres == jres
+
+
+@pytest.mark.parametrize("strategy", ["and", "or", "score"])
+def test_fusion_matches_jax(fx, strategy):
+    """fusion-MSP-Cosine_cl_stride: per-leaf thresholds, fused decisions,
+    fused INDness (1e-4) and OWOD metric dicts against the JAX package."""
+    from ood_in_object_detection_torch.cli.factory import build_ood_method as tbuild
+    from ood_in_object_detection_tpu.cli.factory import build_ood_method as jbuild
+
+    name = "fusion-MSP-Cosine_cl_stride"
+    jm, tm = jbuild(name, fusion_strategy=strategy), tbuild(name, fusion_strategy=strategy)
+    assert jm.strategy == tm.strategy == strategy
+    ind, ood = fx["batches"]["ind"], fx["batches"]["ood"]
+    jpipe.fit_ind_pipeline(jm, jpipe.extract_ind_activations(fx["jdet"], ind, jm,
+                                                             conf_thr_train=CONF_TRAIN))
+    tpipe.fit_ind_pipeline(tm, tpipe.extract_ind_activations(fx["tdet"], ind, tm,
+                                                             conf_thr_train=CONF_TRAIN))
+    for jl, tl in zip(jpipe._leaf_methods(jm), tpipe._leaf_methods(tm)):
+        jt, tt = _flat(jl.thresholds), _flat(tl.thresholds)
+        np.testing.assert_array_equal(np.isnan(tt), np.isnan(jt))
+        np.testing.assert_allclose(tt, jt, rtol=1e-5)
+    neck = fx["tdet"].neck_channels()
+    decided = []
+    for batch in ood:
+        jout = jpipe._predict_step(fx["jdet"], CONF_TEST)(batch["images"])
+        tout = tpipe._predict_step(fx["tdet"], CONF_TEST)(batch["images"])
+        jdec = np.asarray(jpipe._decisions_for_method(jm, jout, neck))
+        tdec = tpipe._decisions_for_method(tm, tout, neck).numpy()
+        np.testing.assert_array_equal(tdec, jdec)
+        np.testing.assert_allclose(
+            tpipe._decisions_for_method(tm, tout, neck, want_scores=True).numpy(),
+            np.asarray(jpipe._decisions_for_method(jm, jout, neck, want_scores=True)),
+            rtol=1e-4, atol=1e-4)
+        decided.append(tdec[np.asarray(tout.det.valid)])
+    decided = np.concatenate(decided)
+    # MSP calls every box kept at CONF_TEST in-distribution here, so 'and'
+    # (InD if either member says so) is all-InD
+    assert decided.all() if strategy == "and" else 0 < decided.sum() < len(decided)
+    jres = jpipe.evaluate_method(fx["jdet"], ood, jm, KNOWN, NAMES, conf_thr_test=CONF_TEST)
+    tres = tpipe.evaluate_method(fx["tdet"], ood, tm, KNOWN, NAMES, conf_thr_test=CONF_TEST)
+    assert tres == jres
+
+
+@pytest.mark.parametrize("flag", [["--benchmark", "unk_loc_enhancement"],
                                   ["--data_parallel"], ["--cluster_method", "KMeans_3"]])
 def test_cli_unported_flags_raise(flag):
     from ood_in_object_detection_torch.cli import ood_eval
