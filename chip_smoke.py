@@ -64,7 +64,9 @@ script exits non-zero without printing a result):
    window copy, shift-add and GEMM kernels must have launched. Then every
    rung's kernel against its plain version on the same inputs: copies and
    shifts bit-exact, GEMM modes within 2^-7 of the output's largest
-   magnitude; three more entries in the kernels line.
+   magnitude; three more entries in the kernels line. The GEMM rungs also
+   carry the rung timed as library calls, torch ops + cuBLAS + F.silu
+   (library_composite_ms).
 
 The last lines are the ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
@@ -936,12 +938,16 @@ def phase_stem_parts(torch, size=(128, 160, 160)) -> list:
                 raise AssertionError(f"{kernel} rung {rung.name!r}: err {err} (scale {scale})")
             lib = BSP.library_call(rung, inputs)
             moved, ops = BSP.cost(rung, inputs, got)
+            gemm = {}
+            if rung.kind == "mm":  # the rung from library calls
+                gemm = dict(library_composite_ms=cuda_ms(
+                    lambda: BSP.stem_gemm_composite(inputs["z"], inputs, rung.arg)))
             rungs[kernel].append(dict(
                 rung=rung.name, replaces=rung.site, max_abs_err=err,
                 ms=cuda_ms(lambda: BSP.call(rung, inputs)),
                 plain_ms=cuda_ms(lambda: BSP.call(rung, inputs, plain=True)),
                 **BSP.bound(moved, ops),
-                library_ms=None if lib is None else cuda_ms(lib)))
+                library_ms=None if lib is None else cuda_ms(lib), **gemm))
             del got, ref
         del inputs
     entries = []
@@ -955,7 +961,8 @@ def phase_stem_parts(torch, size=(128, 160, 160)) -> list:
             replaces=", ".join(sorted({r["replaces"] for r in rungs[kernel]})),
             launches=launches[kernel], headline_rung=head,
             max_abs_err=max(r["max_abs_err"] for r in rungs[kernel]),
-            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "library_composite_ms") if k in top},
             library=lib, shape=[b, h, w], rungs=rungs[kernel]))
     return entries
 

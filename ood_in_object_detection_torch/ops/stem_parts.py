@@ -25,6 +25,7 @@ launches.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -39,8 +40,13 @@ GEMM_MODES = ("mm", "mm_shift", "mm_concat", "mm_accum",
 GEMM_WEIGHTS = {"mm": ("w48", "w64"), "mm_shift": ("w48", "w64"), "mm_concat": ("w1", "w64"),
                 "mm_accum": ("w48", "w64"), "halo_mm_pad": ("w1",), "halo_mm_concat": ("w1",),
                 "halo_full_noshift": ("w1", "w2"), "halo_full": ("w1", "w2")}
-# rows of output each warp of the GEMM kernel walks down (its row tile)
-GEMM_ROWS_PER_ITEM = 20
+# rows of output in each work item of the GEMM kernel (its row tile)
+GEMM_ROWS_PER_ITEM = 40
+# csrc/stem_parts_mm.cu's schedule: pixels of a column strip (the wgmma M),
+# warpgroups a block, z rows in each warpgroup's TMA ring
+GEMM_STRIP, GEMM_WARPGROUPS, GEMM_STAGES = 64, 4, 4
+# the weight images' shapes, (K, N) in the kernel's K order
+GEMM_IMAGE_SHAPES = {"w48": (CIN, 64), "w64": (64, COUT), "w1": (128, 64), "w2": (192, COUT)}
 
 
 def window_copy_plain(z: torch.Tensor, row0: int = 2, cout: int = COUT) -> torch.Tensor:
@@ -125,6 +131,110 @@ def stem_gemm_plain(z: torch.Tensor, weights: Dict[str, torch.Tensor], mode: str
     return _act(_dot(h1, w["w64"]))
 
 
+def gemm_chunks(mode: str):
+    """The GEMM kernel's first operand, 8 channels a chunk: (dr, sh, ch) reads
+    padded-z row y + dr, pixel x - sh, channels ch .. ch + 7 (csrc/stem_parts_mm.cu
+    ``chunk<M>``). The union modes take channels 32:48 of the prev taps where
+    the Pallas kernels take 36:48 and 8 zero lanes (see :data:`W1_KERNEL_ROWS`)."""
+    if mode in ("mm", "mm_shift", "halo_mm_pad"):
+        return [(2, 0, 8 * c) for c in range(6)]
+    if mode == "mm_accum":
+        return [(2 if c < 12 else 0, (c // 6) & 1, 8 * (c % 6)) for c in range(24)]
+    sh = 1 if mode == "halo_full" else 0
+    return ([(2, 0, 8 * c) for c in range(6)] + [(2, sh, 8 * c) for c in range(6)]
+            + [(1, 0, 32 + 8 * c) for c in range(2)] + [(1, sh, 32 + 8 * c) for c in range(2)])
+
+
+def _w1_kernel_rows():
+    rows = list(range(96))
+    for first in (96, 108):    # prev[36:48], zx_prev[36:48] in the Pallas union
+        rows += [-1] * 4 + list(range(first, first + 12))
+    return tuple(rows)
+
+
+# w1's row (the Pallas union's lane) of each of the kernel's 128 K rows; -1:
+# a zero row, against channels 32:36 of a prev tap. w1's rows 120:128 face the
+# union's 8 zero lanes: no K row reads them.
+W1_KERNEL_ROWS = _w1_kernel_rows()
+
+
+def gemm_image_offsets(k: int, n: int) -> torch.Tensor:
+    """(K, N) -> the element offset of B[k, n] in a weight image: per 16-row
+    k-step, per 8 columns, per 8-row half of the k-step, an 8 x 8 core
+    matrix with k contiguous (wgmma's K-major layout without swizzle: 128
+    bytes between the two halves, 256 between column groups)."""
+    kk = torch.arange(k)[:, None]
+    nn = torch.arange(n)[None, :]
+    return (((kk // 16 * (n // 8) + nn // 8) * 2 + kk // 8 % 2) * 64 + nn % 8 * 8 + kk % 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _image_index(name: str) -> torch.Tensor:
+    """Gather index of a weight image into ``cat([w.flatten(), 0])``."""
+    k, n = GEMM_IMAGE_SHAPES[name]
+    rows = torch.tensor(W1_KERNEL_ROWS if name == "w1" else tuple(range(k)))
+    src = torch.where(rows[:, None] >= 0, rows[:, None] * n + torch.arange(n), k * n)
+    index = torch.empty(k * n, dtype=torch.long)
+    index[gemm_image_offsets(k, n).flatten()] = src.flatten()
+    return index
+
+
+_DEVICE_INDEX: dict = {}
+
+
+def pack_gemm_weight(w: torch.Tensor, name: str) -> torch.Tensor:
+    """A weight (w48, w64, w1 or w2, the scripts' shapes) as the GEMM kernel's
+    shared-memory image, flat, on w's device: rows in the kernel's K order
+    (:data:`W1_KERNEL_ROWS` for w1), laid out by :func:`gemm_image_offsets`."""
+    key = (name, str(w.device))
+    index = _DEVICE_INDEX.get(key)
+    if index is None:
+        index = _DEVICE_INDEX[key] = _image_index(name).to(w.device)
+    return torch.cat([w.reshape(-1), w.new_zeros(1)])[index]
+
+
+def unpack_gemm_weight(image: torch.Tensor, name: str) -> torch.Tensor:
+    """The inverse of :func:`pack_gemm_weight` on the rows the kernel reads:
+    w1's rows 120:128, which no K row reads, come back as zeros."""
+    k, n = GEMM_IMAGE_SHAPES[name]
+    kernel_order = image[gemm_image_offsets(k, n)]        # (K, N) in the kernel's K order
+    if name != "w1":
+        return kernel_order
+    rows = torch.tensor(W1_KERNEL_ROWS)
+    out = image.new_zeros(128, n)
+    out[rows[rows >= 0]] = kernel_order[rows >= 0]
+    return out
+
+
+def gemm_plan(mode: str, batch: int, hin: int, w: int, rows: int = GEMM_ROWS_PER_ITEM,
+              sms: int = 132):
+    """The GEMM kernel's schedule (csrc/stem_parts_mm.cu ``item_at`` and its
+    launch): -> one list per warpgroup of its items in order, each
+    {b, x0, y0, y1, h_rows, z_rows}: output rows y0 .. y1 - 1 of pixels x0 ..
+    x0 + 63, the h1 rows computed (one above the tile in the full modes) and
+    the z rows its ring loads, end exclusive (outside z: TMA's zeros)."""
+    halo = mode.startswith("halo")
+    full = mode in ("halo_full_noshift", "halo_full")
+    pad, extra = (2 if halo else 0), (1 if full else 0)
+    lo = min(dr for dr, _, _ in gemm_chunks(mode))
+    hout = hin + pad - 2
+    tiles, strips = -(-hout // rows), -(-w // GEMM_STRIP)
+    items = batch * tiles * strips
+    stride = min(-(-items // GEMM_WARPGROUPS), sms) * GEMM_WARPGROUPS
+    plan = []
+    for q in range(min(stride, items)):
+        mine = []
+        for i in range(q, items, stride):
+            s, r = divmod(i, batch * tiles)
+            b, t = divmod(r, tiles)
+            y0 = t * rows
+            y1 = min(y0 + rows, hout)
+            mine.append(dict(b=b, x0=s * GEMM_STRIP, y0=y0, y1=y1, h_rows=(y0 - extra, y1),
+                             z_rows=(y0 - extra + lo - pad, y1 + 2 - pad)))
+        plan.append(mine)
+    return plan
+
+
 def _check_bf16(name: str, **tensors) -> None:
     from .kernels import _build
 
@@ -203,15 +313,15 @@ def stem_gemm(z: torch.Tensor, weights: Dict[str, torch.Tensor], mode: str) -> t
 
     Replaces the GEMM kernel bodies of scripts/bench_stem_parts.py and
     bench_stem_parts4.py:make. CUDA tensors launch csrc/stem_parts_mm.cu
-    (bf16 tensor-core products, f32 sums); CPU tensors take
-    :func:`stem_gemm_plain`."""
+    (TMA row ring, wgmma with f32 sums, h1 kept in registers) on the weights
+    packed by :func:`pack_gemm_weight`; z must be 16-byte aligned. CPU
+    tensors take :func:`stem_gemm_plain`."""
     if mode not in GEMM_MODES:
         raise ValueError(f"stem_gemm: mode {mode!r} is none of {GEMM_MODES}")
-    shapes = {"w48": (CIN, 64), "w64": (64, COUT), "w1": (128, 64), "w2": (192, COUT)}
     names = GEMM_WEIGHTS[mode]
     for k in names:
-        if k not in weights or tuple(weights[k].shape) != shapes[k]:
-            raise ValueError(f"stem_gemm {mode}: needs {k} of shape {shapes[k]}")
+        if k not in weights or tuple(weights[k].shape) != GEMM_IMAGE_SHAPES[k]:
+            raise ValueError(f"stem_gemm {mode}: needs {k} of shape {GEMM_IMAGE_SHAPES[k]}")
     halo = mode.startswith("halo")
     if z.dim() != 4 or z.shape[3] != CIN or z.shape[1] < (1 if halo else 3):
         raise ValueError(f"stem_gemm: z must be (B, H{'' if halo else ' + 2'}, W, {CIN}), "
@@ -223,11 +333,15 @@ def stem_gemm(z: torch.Tensor, weights: Dict[str, torch.Tensor], mode: str) -> t
     w1 = weights[names[0]]
     w2 = weights[names[1]] if len(names) > 1 else None
     _check_bf16("stem_gemm", z=z, w1=w1, **({} if w2 is None else {"w2": w2}))
+    if z.data_ptr() % 16:
+        raise ValueError("stem_gemm: z must be 16-byte aligned (the kernel reads it by TMA)")
     b, hin, w, _ = z.shape
     hout = hin if halo else hin - 2
     out = torch.empty((b, hout, w, COUT), dtype=z.dtype, device=z.device)
+    b1 = pack_gemm_weight(w1, names[0])
+    b2 = None if w2 is None else pack_gemm_weight(w2, names[1])
     code = _build.launcher("stem_parts_mm")(
-        z.data_ptr(), w1.data_ptr(), 0 if w2 is None else w2.data_ptr(),
+        z.data_ptr(), b1.data_ptr(), 0 if b2 is None else b2.data_ptr(),
         GEMM_MODES.index(mode), b, hin, w, GEMM_ROWS_PER_ITEM, out.data_ptr(),
         _build.stream_handle(z.device))
     stem_gemm.launches += 1

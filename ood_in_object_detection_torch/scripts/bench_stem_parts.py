@@ -19,7 +19,10 @@ One JSON line per rung: the kernel's time (CUDA events, mean of 20 launches
 after 3 of warm-up), the rate it moved its bytes at, ``bound_ms`` (the
 bytes the rung must read and write over 3.35 TB/s, or its GEMM operations
 over 989 TFLOP/s, the larger) and, for the copies, one ``Tensor.copy_`` of
-the same slice (``library_ms``). After the ladders, the yardstick: kernel K4
+the same slice (``library_ms``). The GEMM rungs add their compute floors
+(``mufu_floor_ms``: SiLU at one MUFU operation a value; ``tensor_floor_ms``:
+the products at the bf16 peak) and ``library_composite_ms``, the rung from
+library calls (:func:`stem_gemm_composite`: torch ops, cuBLAS, ``F.silu``). After the ladders, the yardstick: kernel K4
 (ops/stem.py:fused_stem) and cuDNN's two convolutions on the stem the
 ladder is the blueprint for, (B, 3, 4H, 4W) bf16 images, C1 16, C2 32.
 
@@ -42,6 +45,9 @@ from ..ops import stem_parts as SP
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
+# SiLU's floor: one MUFU operation a value (tanh.approx), 16 an SM a clock
+# (CUDA C++ programming guide, compute capability 9.0), 132 SMs, 1.98 GHz
+MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 C1, C2 = 16, 32             # yolov8n's stem widths
 
 
@@ -180,6 +186,51 @@ MODE_OPS = {"mm": 2 * (48 * 64 + 64 * 32), "mm_shift": 2 * (48 * 64 + 64 * 32),
             "halo_full": 2 * (128 * 64 + 192 * 32)}
 
 
+# SiLU values of each GEMM mode per output pixel: h1 (where a second product
+# reads it) and the output
+MODE_SILU = {"mm": 96, "mm_shift": 96, "mm_concat": 96, "mm_accum": 96, "halo_mm_pad": 32,
+             "halo_mm_concat": 32, "halo_full_noshift": 96, "halo_full": 96}
+
+
+def floors(rung: Rung, out: torch.Tensor) -> dict:
+    """A GEMM rung's two compute floors beside its byte bound: SiLU at one
+    MUFU operation a value, the products at the bf16 tensor-core peak."""
+    b, h, w, _ = out.shape
+    return dict(mufu_floor_ms=MODE_SILU[rung.arg] * b * h * w / MUFU_OPS_PER_S * 1e3,
+                tensor_floor_ms=MODE_OPS[rung.arg] * b * h * w / BF16_OPS_PER_S * 1e3)
+
+
+def stem_gemm_composite(z: torch.Tensor, weights: Dict[str, torch.Tensor],
+                        mode: str) -> torch.Tensor:
+    """A GEMM rung from library calls: the operand built with torch ops,
+    cuBLAS's bf16 ``torch.matmul``, ``F.silu``, the second ``matmul``. Several
+    calls, and bf16 between them where the kernel sums in f32: a yardstick
+    of speed only."""
+    w = weights
+    mm = torch.matmul
+    zp = F.pad(z, (0, 0, 0, 0, 2, 0)) if mode.startswith("halo") else z
+    h = zp.shape[1] - 2
+    base, prev, prev2 = zp[:, 2:2 + h], zp[:, 1:1 + h], zp[:, :h]
+    if mode == "mm":
+        h1 = F.silu(mm(base, w["w48"]))
+    elif mode == "mm_shift":
+        h1 = F.silu(mm(base + SP._shift1(base), w["w48"]))
+    elif mode == "mm_concat":
+        h1 = F.silu(mm(SP._union(base, prev, shift=False), w["w1"]))
+    elif mode == "mm_accum":
+        a = torch.cat([base, SP._shift1(base), prev2, SP._shift1(prev2)], -1)
+        h1 = F.silu(mm(a, torch.cat([w["w48"]] * 4)))
+    elif mode == "halo_mm_pad":
+        return F.silu(mm(base, w["w1"][:SP.CIN, :SP.COUT]))
+    elif mode == "halo_mm_concat":
+        return F.silu(mm(SP._union(base, prev, shift=False), w["w1"][:, :SP.COUT]))
+    else:
+        h1all = F.silu(mm(SP._union(zp[:, 1:], zp[:, :-1], mode == "halo_full"), w["w1"]))
+        cur, prv = h1all[:, 1:], h1all[:, :-1]
+        return F.silu(mm(torch.cat([cur, cur, prv[..., 32:64], prv[..., 32:64]], -1), w["w2"]))
+    return F.silu(mm(h1, w["w64"]))
+
+
 def cost(rung: Rung, inputs: Dict[str, torch.Tensor], out: torch.Tensor):
     """(bytes, operations) the rung must move and do: the rows and channels
     of its input that the output depends on, read once, the output written
@@ -257,6 +308,11 @@ def run_ladder(ladder: int, inputs: Dict[str, torch.Tensor]) -> List[dict]:
             rec["library_" + key] = ms_of(lib)
         else:
             rec["library"] = LIBRARY_NONE[rung.kind]
+        if rung.kind == "mm":
+            rec["library_composite_" + key] = ms_of(
+                lambda: stem_gemm_composite(inputs["z"], inputs, rung.arg))
+            if device.type == "cuda":
+                rec.update(floors(rung, out))
         rows.append(rec)
     return rows
 

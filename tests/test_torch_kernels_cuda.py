@@ -457,10 +457,13 @@ def test_shift_add_kernel_matches_plain(dev, n, r, w, shift):
 
 
 @pytest.mark.parametrize("mode", SP.GEMM_MODES)
-@pytest.mark.parametrize("b,h,w", [(1, 7, 13), (2, 20, 16), (1, 45, 37), (2, 41, 160)])
+@pytest.mark.parametrize("b,h,w", [(1, 7, 13), (2, 20, 16), (1, 45, 37), (2, 41, 160),
+                                   (1, 20, 64), (2, 33, 65), (3, 40, 8), (96, 40, 160)])
 def test_stem_gemm_kernel_matches_plain(dev, mode, b, h, w):
     """Every GEMM mode within 2^-7 of the output's largest magnitude: f32
-    sums in another order may round h1 or the output to the other side."""
+    sums in another order may round h1 or the output to the other side.
+    W 64, 65 and 8: one whole strip, a one-pixel second strip, a strip
+    mostly past W; B 96: fewer items than the card has warpgroups."""
     inputs = BSP.make_inputs(4 if mode.startswith("halo") else 1, b, h, w, seed=b * h + w,
                              device=dev)
     before = SP.stem_gemm.launches
@@ -470,3 +473,16 @@ def test_stem_gemm_kernel_matches_plain(dev, mode, b, h, w):
     ref = SP.stem_gemm_plain(inputs["z"], inputs, mode).float()
     assert got.shape == (b, h, w, 32) and got.dtype == torch.bfloat16
     assert float((got.float() - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+
+
+def test_stem_gemm_refuses_a_misaligned_z(dev):
+    """TMA reads z: a contiguous z that starts 2 bytes past a 16-byte
+    boundary is refused before any launch."""
+    inputs = BSP.make_inputs(1, 1, 8, 16, seed=3, device=dev)
+    buf = torch.empty(inputs["z"].numel() + 1, dtype=torch.bfloat16, device=dev)
+    z = buf[1:].view(inputs["z"].shape)
+    z.copy_(inputs["z"])
+    before = SP.stem_gemm.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        SP.stem_gemm(z, inputs, "mm")
+    assert SP.stem_gemm.launches == before
