@@ -32,17 +32,32 @@ script exits non-zero without printing a result):
    image, eval seconds with and without EUL, the front end's device time,
    the host time of connected components and selection, the rank's K2 and
    K3 times.
-5. e2e_bf16 (the --bf16 path): the same weights and batches in a bf16
+5. e2e_sweeps (the --benchmark sweeps on the f32 path): e2e's detector,
+   8 seeded InD batches of 8 scenes (discs on a background, with noise;
+   ``make_scenes``) labelled like e2e's (min / median / max samples per
+   (class, stride) group printed) and one OoD batch written to a
+   temporary directory as a dataset, driven through
+   ``cli.benchmarks.run_benchmark`` with results and caches there. The
+   cluster_methods sweep fits Cosine_cl_stride with every clusterer of
+   the grid (host seconds of each fit, groups fitted, centroids, largest
+   K, mean and spread of the counts, K3's launches and the OWOD columns per
+   method): K1-K4 must have launched, K3 on a bank of K > 1 for every
+   method but 'one', every OWOD value finite. The unk_loc_enhancement sweep
+   (9 combinations, BENCHMARK_MODE's cache) must run the detector's forward
+   (K4's counter) once per OoD batch over all combinations. K3 is then
+   held against its plain version at the fitted 'all' and 'KMeans' banks
+   on the OoD batch's features (``cluster_banks`` in the kernels line).
+6. e2e_bf16 (the --bf16 path): the same weights and batches in a bf16
    detector (f32 parameters, bf16 compute and taps), extract -> fit ->
    evaluate again with the counters reset; K4 and K2's bf16 route must have
    launched. Prints the bf16 predict step and the share of detections and of
    per-box decisions that differ from the f32 path, each under a ceiling.
-6. reference: one image through the card (kernels) and through the CPU
+7. reference: one image through the card (kernels) and through the CPU
    (plain PyTorch versions) with the same weights; maps, detections and
    taps must agree.
-7. profile, profile_bf16: device time of the predict step by kernel
+8. profile, profile_bf16: device time of the predict step by kernel
    (torch.profiler).
-8. kernels: each kernel against its plain PyTorch version on the card, on
+9. kernels: each kernel against its plain PyTorch version on the card, on
    tensors captured from the main paths (plus controlled, chain, k = 4096,
    (2, 8400) and k = 16384 NMS cases, K 5 and K 200 centroid banks with
    masked centroids and empty groups, yolov8n's stem widths and a corner
@@ -56,8 +71,10 @@ script exits non-zero without printing a result):
    torch.bmm (library_with_q_ms) and, per level, the count of non-empty
    rows and the median, p99 and largest support rectangle; K4 gets the
    launcher alone on operands folded once (kernel_ms). K2 (f32) and K3 also
-   carry ``eul_rank``: their numbers at the EUL rank's inputs.
-9. stem_parts (the stem probe ladder's path): the ladder entry point
+   carry ``eul_rank``: their numbers at the EUL rank's inputs, and K3
+   ``cluster_banks``: its numbers at the sweep's fitted banks. Launch
+   counts add up every main path's run (e2e, e2e_eul, e2e_sweeps, e2e_bf16).
+10. stem_parts (the stem probe ladder's path): the ladder entry point
    (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
    driven through all four ladders at full size, z (128, 160(+2), 160, 48)
    bf16, with the counters reset just before and read just after; the
@@ -465,6 +482,236 @@ def phase_e2e_eul(torch, det, dm, ood):
     return launches, parts
 
 
+# the sweeps' InD batches (the earlier phases keep their 2): enough samples
+# in the (class, stride) groups for every grid of the cluster search to work
+SWEEP_BATCHES = 8
+SWEEP_METHOD = "Cosine_cl_stride"
+
+
+def make_scenes(rng, n_batches: int):
+    """Seeded uint8 scenes: a background colour, 3-8 discs of random colour
+    and size, sensor noise of a random level. Boxes on uniform noise give
+    random-weight features that no Birch threshold of the grid splits into
+    valid clusters (each of >= MIN_SAMPLES samples); on scenes Birch's
+    search finds K > 1 in some groups, so every clusterer fits real banks."""
+    yy, xx = np.mgrid[:IMG, :IMG]
+    out = []
+    for _ in range(n_batches):
+        imgs = np.empty((BATCH, IMG, IMG, 3), np.float32)
+        for img in imgs:
+            img[:] = rng.uniform(0, 255, 3)
+            for _ in range(rng.integers(3, 9)):
+                cx, cy = rng.uniform(0, IMG, 2)
+                r = rng.uniform(IMG / 30, IMG / 5)
+                img[(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = rng.uniform(0, 255, 3)
+            img += rng.normal(0, rng.uniform(2, 40), img.shape)
+        out.append(np.clip(imgs, 0, 255).astype(np.uint8))
+    return out
+
+
+def write_dataset(root, batches):
+    """Batches on disk as a YOLO dataset (PNG images, label files, a yaml
+    naming the NC known classes) that the CLI's run_eval loads; -> the yaml.
+    640 x 640 images letterbox to themselves, so the boxes stay put."""
+    from pathlib import Path
+
+    from PIL import Image
+
+    root = Path(root)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    names = []
+    for b in batches:
+        for i, name in enumerate(b["im_names"]):
+            Image.fromarray(b["images"][i]).save(root / "images" / f"{name}.png")
+            m = b["gt_mask"][i]
+            rows = [f"{int(c)} {(x1 + x2) / 2 / IMG:.6f} {(y1 + y2) / 2 / IMG:.6f} "
+                    f"{(x2 - x1) / IMG:.6f} {(y2 - y1) / IMG:.6f}"
+                    for (x1, y1, x2, y2), c in zip(b["gt_bboxes"][i][m], b["gt_labels"][i][m])]
+            (root / "labels" / f"{name}.txt").write_text("\n".join(rows) + "\n")
+            names.append(f"./images/{name}.png")
+    (root / "split.txt").write_text("\n".join(names) + "\n")
+    (root / "sweep_ood.yaml").write_text(
+        "path: .\ntrain: split.txt\nval: split.txt\nnames:\n"
+        + "".join(f"  {k}: c{k}\n" for k in range(NC)))
+    return root / "sweep_ood.yaml"
+
+
+def group_counts(acts) -> list:
+    """Samples per (class, stride) group of a distance method's activations."""
+    return [len(a) if isinstance(a, np.ndarray) and a.ndim == 2 else 0
+            for row in acts for a in row]
+
+
+def cluster_banks_entry(torch, det, methods, images) -> dict:
+    """K3 at the sweep's fitted 'all' and 'KMeans' banks, on the OoD batch's
+    features: the wrapper's time, its device time, the plain version's
+    time and error, the bound and cuBLAS's x @ C.T plus the masked minimum."""
+    from ood_in_object_detection_torch.ood import distance as D
+    from ood_in_object_detection_torch.ood.pipeline import distance_features
+    from ood_in_object_detection_torch.scripts import bench_k3 as BK3
+
+    out = det.predict(images, conf_thres=CONF)
+    banks = {}
+    for name in ("all", "KMeans"):
+        m = methods[name]
+        feats, groups, kmask = m.group_inputs(distance_features(m, out, det.neck_channels())[0])
+        r = BK3.measure(feats, groups, kmask, m.metric, reps=20)
+        if "error" in r or not r["agrees"]:
+            raise AssertionError(f"min_group_distance at the {name} bank: {r}")
+        if not r["device_ms"]:  # a profile that caught no kernel: once more, else unknown
+            r["device_ms"] = BK3.device_ms(
+                lambda: D.min_group_distances(feats, groups, kmask, m.metric), 20) or None
+        banks[name] = dict(largest_k=int(kmask.sum(1).max()), **{
+            k: r[k] for k in ("shape", "valid_centroids", "empty_groups", "max_abs_err", "ms",
+                              "device_ms", "plain_ms", "bound_ms", "bound_by",
+                              "cublas_amin_ms")})
+        emit("kernel_case", kernel="min_group_distance", case=f"cluster_bank_{name}", **r)
+    return banks
+
+
+def phase_e2e_sweeps(torch, det):
+    """The --benchmark sweeps through cli.benchmarks.run_benchmark on e2e's
+    detector: cluster_methods over the whole grid, then unk_loc_enhancement
+    under the BENCHMARK_MODE cache; results and caches in a temporary
+    directory. -> (launches over both sweeps, the K3 cluster_banks numbers)."""
+    import copy
+    import logging
+    import tempfile
+    from pathlib import Path
+
+    from ood_in_object_detection_torch import constants as C
+    from ood_in_object_detection_torch.cli import benchmarks as B
+    from ood_in_object_detection_torch.core.config import CUSTOM_HYP
+    from ood_in_object_detection_torch.cli import ood_eval as E
+    from ood_in_object_detection_torch.ood.methods import DistanceOODMethod
+    from ood_in_object_detection_torch.ood.pipeline import extract_ind_activations
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 20)
+    ind = label_batches(det, make_scenes(rng, SWEEP_BATCHES))
+    ood = label_batches(det, make_scenes(rng, 1), unknown_every=3)
+    acts = extract_ind_activations(det, ind, DistanceOODMethod.from_name(SWEEP_METHOD),
+                                   conf_thr_train=CONF)
+    counts = group_counts(next(iter(acts.values())))
+    filled = sorted(c for c in counts if c)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sweeps_")
+    root = Path(tmp.name)
+    paths = (C.RESULTS_PATH, C.STORAGE_PATH, C.TEMPORAL_STORAGE_PATH)
+    C.RESULTS_PATH, C.STORAGE_PATH = root / "results", root / "storage"
+    C.TEMPORAL_STORAGE_PATH = root / "temp"
+    unk = copy.deepcopy(CUSTOM_HYP.unk)  # the EUL sweep sets its knobs and leaves them
+    yaml = write_dataset(root / "ood", ood)
+    log = logging.getLogger("chip_smoke.sweeps")
+
+    # per-evaluation records: the fitted method, its bank and the launches
+    # of its evaluation; per fit the host seconds of generate_clusters
+    evals, fits = [], []
+    run_eval, generate = E.run_eval, DistanceOODMethod.generate_clusters
+
+    def recording_eval(args, detector, method, logger):
+        before, t0 = read_counters(), time.perf_counter()
+        rows = run_eval(args, detector, method, logger)
+        torch.cuda.synchronize()
+        after = read_counters()
+        evals.append(dict(method=method, rows=rows, seconds=time.perf_counter() - t0,
+                          launches={k: after[k] - before[k] for k in after}))
+        return rows
+
+    def timed_generate(self, acts, *a, **kw):
+        t0 = time.perf_counter()
+        out = generate(self, acts, *a, **kw)
+        fits.append(time.perf_counter() - t0)
+        return out
+
+    def sweep(name, cluster_method="one"):
+        args = E.build_parser().parse_args([
+            "--ood_method", SWEEP_METHOD, "--cluster_method", cluster_method,
+            "--ind_dataset", str(yaml), "--ood_datasets", str(yaml), "--device", "0",
+            "--model", MODEL[-1], "--img_size", str(IMG), "--batch_size", str(BATCH),
+            "--conf_thr_train", str(CONF), "--conf_thr_test", str(CONF),
+            "--benchmark", name, "--name", "chip_smoke"])
+        method = E.build_ood_method(SWEEP_METHOD, cluster_method)
+        evals.clear()
+        fits.clear()
+        t0 = time.perf_counter()
+        rows = B.run_benchmark(args, det, method, ind, log)
+        torch.cuda.synchronize()
+        return rows, time.perf_counter() - t0
+
+    failures = []
+    E.run_eval, DistanceOODMethod.generate_clusters = recording_eval, timed_generate
+    try:
+        reset_counters()
+        rows, cm_seconds = sweep("cluster_methods")
+        cm_launches = read_counters()
+        per_method, fitted = [], {}
+        for ev, fit_s, row in zip(evals, list(fits), rows):
+            m = ev["method"]
+            sizes = [len(c) for r in m.clusters for c in r if isinstance(c, np.ndarray)
+                     and c.ndim == 2]
+            kmax = int(m.bank(DEVICE).count.max())
+            owod = {k: row[k] for k in row if k.endswith("(COOD)")}
+            per_method.append(dict(
+                cluster_method=m.cluster_method, fit_host_s=fit_s, eval_s=ev["seconds"],
+                groups_fitted=len(sizes),
+                centroids=sum(sizes), largest_k=kmax, mean_n_clus=row["mean_n_clus"],
+                std_n_clus=row["std_n_clus"], k3_launches=ev["launches"]["min_group_distances"],
+                eval_launches=ev["launches"], owod=owod))
+            fitted[m.cluster_method] = m
+            if not all(np.isfinite(v) for v in owod.values()) or len(owod) != 4:
+                failures.append(f"cluster_methods {m.cluster_method}: bad OWOD {owod}")
+            if not ev["launches"]["min_group_distances"] or (
+                    m.cluster_method != "one" and kmax < 2):
+                failures.append(f"cluster_methods {m.cluster_method}: K3 did not launch on a "
+                                f"bank of K > 1: K {kmax}, {ev['launches']}")
+        if [r["cluster_method"] for r in per_method] != list(C.BENCHMARKS["cluster_methods"]):
+            failures.append(f"the sweep skipped methods: {per_method}")
+        path = ("greedy_keep", "roi_contract", "min_group_distances", "fused_stem")
+        if not all(cm_launches[k] for k in path):
+            failures.append(f"the cluster_methods sweep did not launch K1-K4: {cm_launches}")
+
+        reset_counters()
+        ul_rows, ul_seconds = sweep("unk_loc_enhancement")
+        ul_launches = read_counters()
+        forwards = sum(ev["launches"]["fused_stem"] for ev in evals)
+        if forwards != len(ood) or len(ul_rows) != 9:
+            failures.append(f"unk_loc_enhancement: {forwards} forwards over {len(ood)} OoD "
+                            f"batches and {len(ul_rows)} combos (the cache serves the rest)")
+        for row in ul_rows:
+            vals = [row[k] for k in row if k.endswith("(COOD)")]
+            if len(vals) != 4 or not all(np.isfinite(v) for v in vals):
+                failures.append(f"unk_loc_enhancement: bad row {row}")
+        cache_entries = len(list(C.TEMPORAL_STORAGE_PATH.glob("*.pkl")))
+    finally:
+        E.run_eval, DistanceOODMethod.generate_clusters = run_eval, generate
+        C.RESULTS_PATH, C.STORAGE_PATH, C.TEMPORAL_STORAGE_PATH = paths
+        CUSTOM_HYP.unk = unk
+        tmp.cleanup()
+    banks = cluster_banks_entry(torch, det, fitted, ood[0]["images"])
+    # each group's squared radius about its mean (unit rows: 1 - |mean|^2),
+    # against Birch's smallest threshold, 0.1 (a radius)
+    sq = [1.0 - float((f.mean(0) ** 2).sum()) for f in (
+        fitted["one"].transform(a) for row in next(iter(acts.values())) for a in row
+        if isinstance(a, np.ndarray) and a.ndim == 2 and len(a) > 3)]
+    emit("e2e_sweeps", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, dtype="float32",
+         ood_method=SWEEP_METHOD, ind_batches=SWEEP_BATCHES, ood_batches=len(ood),
+         groups=len(counts), groups_with_samples=len(filled),
+         samples_per_group=dict(min=filled[0], median=float(np.median(filled)), max=filled[-1],
+                                total=sum(filled)) if filled else None,
+         cluster_methods=dict(seconds=cm_seconds, launches=cm_launches, methods=per_method),
+         unk_loc_enhancement=dict(
+             seconds=ul_seconds, launches=ul_launches, combos=len(ul_rows),
+             forwards_at_test_conf=forwards, cache_entries=cache_entries,
+             rows=[{k: r[k] for k in r if k.endswith("(COOD)")} for r in ul_rows]),
+         group_sq_radius=dict(min=min(sq), median=float(np.median(sq)), max=max(sq)),
+         k3_cluster_banks=banks, phase_seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("e2e_sweeps: " + "; ".join(failures))
+    total = {k: cm_launches[k] + ul_launches[k] for k in cm_launches}
+    return total, banks
+
+
 def flip_shares(det32, det16, methods32, methods16, ood):
     """Share of detections (image, anchor) found by one precision only, and
     of per-box decisions that differ on the detections both found."""
@@ -814,7 +1061,7 @@ def stem_entry(torch, S, det, images, launches):
 
 
 def phase_kernels(torch, det, det16, dist_method, images, launches, launches16, launches_eul,
-                  eul_parts):
+                  eul_parts, launches_sweeps, cluster_banks):
     from ood_in_object_detection_torch.ood.pipeline import distance_features
     from ood_in_object_detection_torch.ops import nms as N
     from ood_in_object_detection_torch.ops import roi_align as R
@@ -828,7 +1075,8 @@ def phase_kernels(torch, det, det16, dist_method, images, launches, launches16, 
     shifted, valid = N.nms_inputs(cand.boxes, cand.conf, cand.cls,
                                   torch.tensor(CONF, device=DEVICE))
     out = det.predict(images, conf_thres=CONF)
-    total = {k: launches[k] + launches16[k] + launches_eul[k] for k in launches}
+    total = {k: launches[k] + launches16[k] + launches_eul[k] + launches_sweeps[k]
+             for k in launches}
     entries = []
 
     entries.append(nms_entry(torch, N, shifted, valid, total["greedy_keep"]))
@@ -885,9 +1133,13 @@ def phase_kernels(torch, det, det16, dist_method, images, launches, launches16, 
                                                   "cublas_amin_ms", "max_abs_err")}
                                for c in k3_cases]))
 
-    # K2 (f32) and K3 at the EUL rank's inputs (e2e_eul)
+    # K2 (f32) and K3 at the EUL rank's inputs (e2e_eul); K3 at the sweep's
+    # fitted 'all' and 'KMeans' banks (e2e_sweeps)
     entries[1]["eul_rank"] = eul_parts["k2"]
     entries[-1]["eul_rank"] = {k: v for k, v in eul_parts["k3"].items() if k != "agrees"}
+    entries[-1]["cluster_banks"] = cluster_banks
+    err = max([err] + [b["max_abs_err"] for b in cluster_banks.values()])
+    entries[-1]["max_abs_err"] = err
 
     # K4: the stems of both paths
     entries.append(stem_entry(torch, S, det, images, total["fused_stem"]))
@@ -985,6 +1237,7 @@ def main() -> int:
          nvcc_flags=" ".join(_build.NVCC_FLAGS))
     det, methods, ind, ood, launches, step_ms = phase_e2e(torch)
     launches_eul, eul_parts = phase_e2e_eul(torch, det, methods["Cosine_cl_stride"], ood)
+    launches_sweeps, cluster_banks = phase_e2e_sweeps(torch, det)
     det16, launches16, step16_ms = phase_e2e_bf16(torch, det, methods, ind, ood)
     images = ood[0]["images"]
     phase_reference(torch, det, images)
@@ -992,7 +1245,8 @@ def main() -> int:
     phase_profile(torch, det16, images, step16_ms, label="profile_bf16")
     with torch.no_grad():
         entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
-                                launches, launches16, launches_eul, eul_parts)
+                                launches, launches16, launches_eul, eul_parts,
+                                launches_sweeps, cluster_banks)
     entries += phase_stem_parts(torch)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries, "card": env["nvidia_smi"]}), flush=True)

@@ -9,7 +9,8 @@ OoD dataset -> CSV/XLSX rows. Datasets, constants, results writing and the
 hyperparameters are the port's own copies of the JAX package's NumPy modules
 (data/, constants.py, eval/results_writer.py, core/config.py). ``--bf16``
 runs the model with f32 parameters and bf16 compute and taps, as the JAX
-CLI's flag does. Flags whose features are not ported yet raise
+CLI's flag does. ``--benchmark`` runs one of the sweeps of
+``cli/benchmarks.py``. Flags whose features are not ported yet raise
 NotImplementedError naming their ROADMAP.md item.
 
     python -m ood_in_object_detection_torch.cli.ood_eval --ood_method MSP \\
@@ -36,17 +37,17 @@ from ..engine import Detector
 from ..eval.results_writer import (
     append_results, fill_dataset_results, finalize_row, method_info_row,
 )
+from ..ood.clustering import A7C, check_cluster_method
 from ..ood.methods import DistanceOODMethod, FusionOODMethod
 from ..ood.pipeline import (_leaf_methods, assign_fitted_state, collect_fusion_member_indness,
                             evaluate_method, extract_ind_activations)
+from .benchmarks import check_sweep, run_benchmark
 from .factory import build_ood_method, resolve_model_name
 
 log = logging.getLogger("ood_eval")
 
 # flag -> the ROADMAP.md item that will port it
 UNPORTED_FLAGS = {
-    "benchmark": "A5b (the BENCHMARK_MODE cache and benchmark sweeps; they follow A7b, "
-                 "since they sweep the cluster methods)",
     "data_parallel": "A12 (multi-GPU)",
     "export_bundle": "A11 (serving/export)",
     "model_path": "A11 (checkpoints)",
@@ -106,7 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--temperature_energy", type=float, default=1.0)
     p.add_argument("--temperature_odin", type=float, default=1000.0)
     p.add_argument("--benchmark", default="", choices=[""] + C.AVAILABLE_BENCHMARKS,
-                   help="not ported")
+                   help="run one sweep of constants.BENCHMARKS instead of one evaluation")
     p.add_argument("--load_ind_activations", action="store_true")
     p.add_argument("--load_clusters", action="store_true")
     p.add_argument("--load_thresholds", action="store_true")
@@ -125,9 +126,12 @@ def check_ported(args) -> None:
     for flag, item in UNPORTED_FLAGS.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP.md: {item})")
-    if any(c != "one" for c in args.cluster_method.split("-")):
-        raise NotImplementedError(f"--cluster_method {args.cluster_method}: only 'one' is "
-                                  "ported (ROADMAP.md, the other cluster methods)")
+    for c in args.cluster_method.split("-"):
+        check_cluster_method(c)
+    if args.visualize_clusters:
+        raise NotImplementedError(f"--visualize_clusters is not ported yet ({A7C})")
+    if args.benchmark:
+        check_sweep(args.benchmark)
 
 
 def torch_device(spec: str) -> torch.device:
@@ -170,6 +174,12 @@ def load_dataset(args, path_or_name: str, split: str, owod_task: str) -> Detecti
 
 def _batches(args, ds) -> list:
     return list(PaddedBatcher(ds, args.batch_size, args.img_size))
+
+
+def build_val_batches(args) -> list:
+    """Val-split InD batches for the which_split threshold-score selection
+    (reference dataloader_val, ood_evaluation.py:714-720)."""
+    return _batches(args, load_dataset(args, args.ind_dataset, "val", args.owod_task_ind))
 
 
 def _load_or_extract(args, detector, method, batches, cache_file, logger):
@@ -261,7 +271,9 @@ def run_eval(args, detector, method, logger) -> List[Dict]:
         names = ds.names[: ds.number_of_classes] + ["unknown"]
         vis_dir = (str(C.RESULTS_PATH / "visualizations" / f"{args.name}_{ds.yaml_name}")
                    if args.visualize_oods else None)
-        metrics = evaluate_method(detector, _batches(args, ds), method, known, names,
+        batches = PaddedBatcher(ds, args.batch_size, args.img_size)
+        batches.tag = ds.yaml_name  # names the dataset in the BENCHMARK_MODE cache's key
+        metrics = evaluate_method(detector, batches, method, known, names,
                                   conf_thr_test=args.conf_thr_test,
                                   enhanced_unk_localization=args.enhanced_unk_localization,
                                   logger=logger, visualize_dir=vis_dir)
@@ -292,8 +304,6 @@ def main(argv=None) -> List[Dict]:
     logging.basicConfig(level=logging.INFO)
     if args.remove_orphans:
         CUSTOM_HYP.clusters.REMOVE_ORPHANS = True
-    if args.visualize_clusters:
-        CUSTOM_HYP.clusters.VISUALIZE = True
     ind = load_dataset(args, args.ind_dataset, args.ind_split, args.owod_task_ind)
     detector = load_detector(args, default_nc=ind.number_of_classes)
     method = build_ood_method(
@@ -305,9 +315,11 @@ def main(argv=None) -> List[Dict]:
             m.ind_info_creation_option = args.ind_info_creation_option
             if args.which_internal_activations in C.FTMAPS_RELATED_OPTIONS:
                 m.which_internal_activations = args.which_internal_activations
-    val_batches = (_batches(args, load_dataset(args, args.ind_dataset, "val", args.owod_task_ind))
-                   if args.which_split in ("val", "train_val") else None)
-    configure_ind(args, detector, method, _batches(args, ind), log, val_batches=val_batches)
+    val_batches = build_val_batches(args) if args.which_split in ("val", "train_val") else None
+    ind_batches = _batches(args, ind)
+    if args.benchmark:
+        return run_benchmark(args, detector, method, ind_batches, log, val_batches=val_batches)
+    configure_ind(args, detector, method, ind_batches, log, val_batches=val_batches)
     if args.dump_fusion_scores:
         dump_fusion_scores(args, detector, method, log)
     rows = run_eval(args, detector, method, log)

@@ -10,8 +10,9 @@ hierarchy, ood_utils.py:44-3521):
 Decision conventions are the reference's: logits methods call a box OoD when
 score < thr[cls], with 0 for an unfit class (ood_utils.py:1195-1208, 612);
 distance methods call it InD when dist < thr[cls, stride] and OoD when there
-is no cluster or no threshold (ood_utils.py:2147-2180). Only the ``one``
-cluster method is ported; the others raise (ROADMAP.md).
+is no cluster or no threshold (ood_utils.py:2147-2180). Clusters are one
+centroid per group (``one``) or the centroids of a host-side cluster search
+(``ood/clustering.py``); MeanShift, GMM and BGMM raise (ROADMAP.md A7c).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.config import CUSTOM_HYP
+from .clustering import UNPORTED_CLUSTERING_METHODS, check_cluster_method, fit_cluster_labels
 from .distance import (
     CentroidBank,
     NO_CLUSTER_DISTANCE,
@@ -157,10 +159,8 @@ class DistanceOODMethod:
     _banks: Dict[str, CentroidBank] = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
-        if self.cluster_method != "one":
-            raise NotImplementedError(
-                f"cluster method {self.cluster_method!r} is not ported yet; only 'one' is "
-                "(ROADMAP.md, the other cluster methods)")
+        if self.cluster_method in UNPORTED_CLUSTERING_METHODS:
+            check_cluster_method(self.cluster_method)
 
     @staticmethod
     def from_name(name: str, cluster_method: str = "one", **kw) -> "DistanceOODMethod":
@@ -175,9 +175,11 @@ class DistanceOODMethod:
 
     def generate_clusters(self, acts: Sequence[Sequence[np.ndarray]], logger=None,
                           min_samples: Optional[int] = None):
-        """acts[class][stride] = (N, ...) activations; one centroid (the mean,
-        or the median with agg='median') per group with more than
-        clusters.MIN_SAMPLES samples (ood_utils.py:2263-2330)."""
+        """acts[class][stride] = (N, ...) activations -> per group with more
+        than clusters.MIN_SAMPLES samples (read at call time), the ``agg``
+        (mean or median) of its transformed features: one centroid with
+        ``one``, else one per label of ``fit_cluster_labels`` in sorted label
+        order, -1 skipped under REMOVE_ORPHANS (ood_utils.py:2263-2366)."""
         if min_samples is None:
             min_samples = CUSTOM_HYP.clusters.MIN_SAMPLES
         agg = np.mean if self.agg == "mean" else np.median
@@ -188,7 +190,18 @@ class DistanceOODMethod:
                 a = acts[c][s]
                 if not isinstance(a, np.ndarray) or a.size == 0 or len(a) <= min_samples:
                     continue
-                clusters[c][s] = agg(self.transform(a, c, s), axis=0)[None, :]
+                feats = self.transform(a, c, s)
+                if self.cluster_method == "one":
+                    clusters[c][s] = agg(feats, axis=0)[None, :]
+                    continue
+                labels = fit_cluster_labels(feats, self.cluster_method, self.metric,
+                                            self.cluster_optimization_metric,
+                                            tag=f"{self.name}_cls{c}_stride{s}")
+                cents = [agg(feats[labels == lab], axis=0)
+                         for lab in sorted(set(labels.tolist()))
+                         if not (lab == -1 and CUSTOM_HYP.clusters.REMOVE_ORPHANS)]
+                if cents:
+                    clusters[c][s] = np.stack(cents, axis=0)
         self.clusters = clusters
         self._banks = {}
         return clusters

@@ -20,20 +20,28 @@ around ``Detector.predict``:
 - ``collect_fusion_member_indness``: per-box INDness of each fusion member
   (the CLI's --dump_fusion_scores).
 
+With CUSTOM_HYP.BENCHMARK_MODE on, ``evaluate_method`` keeps each batch's
+post-NMS per-box tensors (and P3 when EUL needs it) in a host-side cache on
+disk, so that a sweep over post-prediction knobs runs the forward once per
+batch (``_cached_predict``).
+
 Not ported yet, and each raises when asked for: the launch/consume overlap
-(it relies on JAX's asynchronous dispatch), the BENCHMARK_MODE prediction
-cache, device meshes and SDR.
+(it relies on JAX's asynchronous dispatch), device meshes and SDR.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import pickle
+import time
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import constants as C
 from ..core.config import CUSTOM_HYP
 from ..engine import Detector, PredictOutput
 from ..eval.owod_protocol import UNKNOWN_CLASS_INDEX, compute_metrics
@@ -52,6 +60,9 @@ from .unknown import (eul_frontend_batched, finish_unknown_proposals, rank_dista
 log = logging.getLogger(__name__)
 
 UNK_PROPOSAL_CONF = 0.150001  # reference ood_utils.py:530
+# one per process: a sweep's combos share cache entries, another run (other
+# weights) never reads them (the reference's f"{NOW}_..." key, ood_utils.py:477)
+_CACHE_NONCE = f"{os.getpid():x}-{int(time.time()):x}"
 
 
 def _np(x) -> np.ndarray:
@@ -67,9 +78,42 @@ def _np(x) -> np.ndarray:
 def _check_unported(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError("device meshes are not ported (ROADMAP.md A12, multi-GPU)")
-    if CUSTOM_HYP.BENCHMARK_MODE:
-        raise NotImplementedError("the BENCHMARK_MODE prediction cache is not ported "
-                                  "(ROADMAP.md)")
+
+
+def _to(x, device):
+    """Every tensor of a (nested) tuple on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return type(x)(*(_to(v, device) for v in x)) if hasattr(x, "_fields") else \
+        tuple(_to(v, device) for v in x)
+
+
+def _cached_predict(step, detector: Detector, batches, conf_thr_test: float, eul: bool):
+    """``(batch_idx, images) -> PredictOutput``: ``step`` alone, or under
+    CUSTOM_HYP.BENCHMARK_MODE a cache on disk (JAX ood/pipeline.py:392-427,
+    reference ood_utils.py:450-482). An entry is keyed by the process nonce,
+    the dataset's tag (``batches.tag``), the test confidence and EUL, and
+    holds the per-box tensors on the host (and P3 with EUL, not the other
+    neck maps); a hit returns them as a PredictOutput on the detector's
+    device without running the forward."""
+    if not CUSTOM_HYP.BENCHMARK_MODE:
+        return lambda batch_idx, images: step(images)
+    cache_dir = C.TEMPORAL_STORAGE_PATH
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    tag = (f"{_CACHE_NONCE}_{getattr(batches, 'tag', 'ds')}_conf{conf_thr_test}"
+           + ("_eul" if eul else ""))
+
+    def predict(batch_idx, images):
+        path = cache_dir / f"{tag}_{batch_idx}.pkl"
+        if path.exists():
+            return PredictOutput(*_to(pickle.loads(path.read_bytes()), detector.device))
+        out = step(images)
+        slim = PredictOutput(out.det, out.logits, out.stride_level, out.anchor_idx,
+                             out.roi_feats, out.exact_feats, (out.neck[0],) if eul else ())
+        path.write_bytes(pickle.dumps(tuple(_to(slim, "cpu"))))
+        return out
+
+    return predict
 
 
 def _predict_step(detector: Detector, conf_thres: float, **kw):
@@ -281,7 +325,8 @@ def evaluate_method(detector: Detector, batches, method, known_classes: Sequence
     _check_unported(mesh)
     logger = logger or log
     neck_ch = detector.neck_channels()
-    step = _predict_step(detector, conf_thr_test)
+    predict = _cached_predict(_predict_step(detector, conf_thr_test), detector, batches,
+                              conf_thr_test, enhanced_unk_localization)
     all_preds, all_targets = [], []
     known_arr = np.asarray(list(known_classes))
     if enhanced_unk_localization:
@@ -291,7 +336,7 @@ def evaluate_method(detector: Detector, batches, method, known_classes: Sequence
         dm = dms[0]
         rank_bank = _stride0_rank_bank(dm, neck_ch[0], detector.device)
     for batch_idx, batch in enumerate(batches):
-        out = step(batch["images"])
+        out = predict(batch_idx, batch["images"])
         decisions = _np(_decisions_for_method(method, out, neck_ch))
         if visualize_dir and batch_idx < visualize_batches:
             from ..utils.visualization import plot_batch_results

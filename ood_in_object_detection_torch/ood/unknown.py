@@ -6,8 +6,9 @@ The NumPy/scipy parts are copies of ood_in_object_detection_tpu/ood/unknown.py
 (that package's ood/__init__.py imports jax), held equal to the originals by
 tests/test_torch_unknown.py: the summarizers, the thresholders, the
 connected-component boxes, the proposal heuristics, ranking and selection.
-``k_means_thresholding`` needs sklearn, which the port does not use: it
-raises until the port has its own k-means (ROADMAP.md A7b).
+``k_means_thresholding`` runs the port's k-means (``ood/kmeans.py``, the
+same labels and centres as scikit-learn's) where the JAX package runs
+scikit-learn's.
 
 The batched front end (``eul_frontend_dispatch`` / ``_batched`` /
 ``_finish``) runs ``unknown_device.eul_frontend_masks`` on the map's device
@@ -172,8 +173,15 @@ def multi_threshold_otsu(image: np.ndarray, num_classes: int, nbins: int = 128) 
 
 
 def k_means_thresholding(image: np.ndarray, num_clusters: int) -> List[float]:
-    raise NotImplementedError("the k_means thresholder needs a k-means of the port's own, "
-                              "which is not written yet (ROADMAP.md A7b)")
+    """Midpoints of the sorted centres of a k-means (seed 0) over the flat
+    map (ood_in_object_detection_tpu/ood/unknown.py:175-181, on the port's
+    ood/kmeans.py in place of scikit-learn's)."""
+    from .kmeans import KMeans
+
+    flat = np.asarray(image).ravel().reshape(-1, 1)
+    km = KMeans(n_clusters=num_clusters, random_state=0).fit(flat)
+    centers = sorted(km.cluster_centers_.ravel().tolist())
+    return sorted(set((centers[i] + centers[i + 1]) / 2 for i in range(len(centers) - 1)))
 
 
 def quantile_thresholding(image: np.ndarray, num_quantiles: int) -> List[float]:

@@ -1,7 +1,10 @@
 """The PyTorch port imports neither jax, triton, any module of the JAX
-package nor the repository's JAX scripts. Checked in a fresh subprocess, because tests/conftest.py imports jax
-into every test process."""
+package, the repository's JAX scripts, nor scikit-learn, hdbscan or
+matplotlib (none is on the card's machine). Checked in a fresh subprocess,
+because tests/conftest.py imports jax into every test process, and by a scan
+of every source's import statements, the ones inside functions included."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -9,10 +12,12 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-# top-level modules the port must not import: JAX, Triton, the JAX package
-# and the repository's JAX scripts (scripts/bench_stem_parts*.py)
+# top-level modules the port must not import: JAX, Triton, the JAX package,
+# the repository's JAX scripts (scripts/bench_stem_parts*.py), and the host
+# libraries of the JAX package's clustering and plots
 FORBIDDEN = ("jax", "jaxlib", "flax", "triton", "ood_in_object_detection_tpu", "scripts",
-             "bench_stem_parts", "bench_stem_parts2", "bench_stem_parts3", "bench_stem_parts4")
+             "bench_stem_parts", "bench_stem_parts2", "bench_stem_parts3", "bench_stem_parts4",
+             "sklearn", "hdbscan", "matplotlib")
 
 
 @pytest.mark.parametrize("modules", [
@@ -63,3 +68,27 @@ def test_chip_smoke_fails_without_cuda():
                           env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _absolute_imports(path: Path):
+    """(line, top-level module) of every absolute import statement in a
+    source, at any depth (module level, functions, methods)."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+
+
+def test_port_sources_name_no_forbidden_import():
+    """No import statement of the port's sources or chip_smoke.py, lazy
+    ones included (the subprocess walk sees only what importing a module
+    runs), names a forbidden module."""
+    files = sorted((REPO / "ood_in_object_detection_torch").rglob("*.py")) + \
+        [REPO / "chip_smoke.py"]
+    assert len(files) > 40
+    bad = [f"{f.relative_to(REPO)}:{line} {mod}" for f in files
+           for line, mod in _absolute_imports(f)
+           if mod in FORBIDDEN]
+    assert not bad, bad

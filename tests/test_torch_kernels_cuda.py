@@ -486,3 +486,50 @@ def test_stem_gemm_refuses_a_misaligned_z(dev):
     with pytest.raises(ValueError, match="16-byte aligned"):
         SP.stem_gemm(z, inputs, "mm")
     assert SP.stem_gemm.launches == before
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+@pytest.mark.parametrize("kmax", [14, 150])
+def test_min_group_distance_kernel_fitted_bank(dev, metric, kmax):
+    """K3 on a bank shaped like a fitted multi-centroid one, through the
+    distance method's own inputs (DistanceOODMethod.group_inputs): uneven K
+    per (class, stride) group up to ``kmax`` (14, KMeans' largest; 150, the
+    'all' bank of a large group), empty groups, and centroids that are means
+    of unit rows (not unit; the cosine bank renormalises them)."""
+    from ood_in_object_detection_torch.ood.methods import DistanceOODMethod
+
+    rng = np.random.default_rng(kmax)
+    nc, d = 20, 512
+    ks = rng.integers(0, kmax + 1, (nc, 3))
+    ks[rng.uniform(size=(nc, 3)) < 0.25] = 0
+    ks[0, 0] = kmax
+    clusters = []
+    for row in ks:
+        out = []
+        for k in row:
+            rows = rng.normal(size=(max(k, 1), 3, d))
+            rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
+            out.append(rows.mean(1).astype(np.float32) if k else np.empty(0))
+        clusters.append(out)
+    name = "Cosine_cl_stride" if metric == "cosine" else "L2_cl_stride"
+    m = DistanceOODMethod.from_name(name, cluster_method="KMeans")
+    m.clusters = clusters
+    x = D.l2_normalize_rows(torch.tensor(rng.normal(size=(2400, d)), dtype=torch.float32))
+    feats, groups, kmask = m.group_inputs(x.to(dev))
+    assert int(kmask.sum(1).max()) == kmax and not kmask.any(1).all()
+    before = D.min_group_distances.launches
+    got = D.min_group_distances(feats, groups, kmask, metric)
+    torch.cuda.synchronize()
+    assert D.min_group_distances.launches == before + 1
+    ref = D.min_group_distances_plain(feats, groups, kmask, metric)
+    assert torch.equal(torch.isinf(got), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    torch.testing.assert_close(got[fin], ref[fin], rtol=1e-5,
+                               atol=1e-3 if metric == "l2" else 1e-5)
+    # the whole path, with the gather of each box's group, against the CPU
+    cls, lvl = torch.as_tensor(rng.integers(0, nc, 2400)), torch.as_tensor(rng.integers(0, 3, 2400))
+    m2 = DistanceOODMethod.from_name(name, cluster_method="KMeans")
+    m2.clusters = clusters
+    torch.testing.assert_close(m.distances(x.to(dev), cls.to(dev), lvl.to(dev)).cpu(),
+                               m2.distances(x, cls, lvl), rtol=1e-5,
+                               atol=1e-3 if metric == "l2" else 1e-5)

@@ -1,7 +1,7 @@
 """The NumPy modules the port re-homes from the JAX package (core/config.py,
 eval/owod_protocol.py, ood/thresholds.py, ood/matching.py, constants.py,
 data/{dataset,letterbox}.py, eval/results_writer.py,
-utils/visualization.py) give the JAX package's results on the same inputs:
+utils/visualization.py, ood/dbcv.py) give the JAX package's results on the same inputs:
 equal, not within a tolerance, since the code is the same."""
 
 import numpy as np
@@ -12,6 +12,7 @@ from ood_in_object_detection_tpu import data as jdata
 from ood_in_object_detection_tpu.core import config as jconfig
 from ood_in_object_detection_tpu.eval import owod_protocol as jowod
 from ood_in_object_detection_tpu.eval import results_writer as jwriter
+from ood_in_object_detection_tpu.ood import dbcv as jdbcv
 from ood_in_object_detection_tpu.ood import matching as jmatching
 from ood_in_object_detection_tpu.ood import thresholds as jthr
 from ood_in_object_detection_tpu.utils import visualization as jvis
@@ -20,6 +21,7 @@ from ood_in_object_detection_torch import data as tdata
 from ood_in_object_detection_torch.core import config as tconfig
 from ood_in_object_detection_torch.eval import owod_protocol as towod
 from ood_in_object_detection_torch.eval import results_writer as twriter
+from ood_in_object_detection_torch.ood import dbcv as tdbcv
 from ood_in_object_detection_torch.ood import matching as tmatching
 from ood_in_object_detection_torch.ood import thresholds as tthr
 from ood_in_object_detection_torch.utils import visualization as tvis
@@ -188,3 +190,18 @@ def test_visualization_matches_jax():
     boxes = np.array([[4.0, 5.0, 30.0, 40.0], [10.0, 2.0, 60.0, 20.0]])
     args = (img, boxes, ["c0 0.91", ""], [(255, 0, 0), (0, 255, 0)])
     np.testing.assert_array_equal(tvis.draw_boxes(*args), jvis.draw_boxes(*args))
+
+
+@pytest.mark.parametrize("metric", ["l1", "l2", "cosine"])
+def test_dbcv_matches_jax(metric):
+    """ood/dbcv.py is the JAX package's module, unchanged: the same source
+    and the same validity index, noise label included."""
+    from pathlib import Path
+
+    assert Path(tdbcv.__file__).read_text() == Path(jdbcv.__file__).read_text()
+    rng = np.random.default_rng(4)
+    x = np.concatenate([rng.normal(c, 0.3, (25, 6)) for c in (0.0, 3.0, -3.0)])
+    labels = np.repeat([0, 1, 2], 25)
+    labels[::11] = -1
+    assert tdbcv.validity_index(x, labels, metric=metric, d=6) == \
+        jdbcv.validity_index(x, labels, metric=metric, d=6)

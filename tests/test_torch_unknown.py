@@ -328,11 +328,19 @@ def test_host_thresholders_equal_jax(method, num_thresholds):
     assert tunk.threshold_otsu(sal) == junk.threshold_otsu(sal)
 
 
-def test_k_means_thresholding_raises():
-    with pytest.raises(NotImplementedError, match="A7b"):
-        tunk.k_means_thresholding(np.zeros((4, 4)), 3)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        tunk.select_thresholding("k_means", 3)(np.zeros((4, 4)))
+@pytest.mark.parametrize("num_thresholds", [2, 3, 4])
+def test_k_means_thresholding_matches_jax(num_thresholds):
+    """The k_means thresholder on the port's k-means against the JAX
+    package's on scikit-learn's, on a saliency map and through
+    select_thresholding: the thresholds within 1e-6."""
+    sal = junk.mean_absolute_deviation_of_ftmaps(_blob_maps(6, b=1, h=24, w=20)[0])
+    got = tunk.k_means_thresholding(sal, num_thresholds)
+    want = junk.k_means_thresholding(sal, num_thresholds)
+    assert len(got) == len(want) == num_thresholds - 1
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_allclose(tunk.select_thresholding("k_means", num_thresholds)(sal),
+                               junk.select_thresholding("k_means", num_thresholds)(sal),
+                               rtol=1e-6)
 
 
 def test_boxes_nms_rank_equal_jax():
