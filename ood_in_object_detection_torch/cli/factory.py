@@ -7,15 +7,32 @@ from ..ood.methods import (DISTANCE_METHODS, DistanceOODMethod, FusionOODMethod,
                            LOGITS_METHODS, LogitsOODMethod)
 
 
+# scales reachable per family through the CLI (models/yolo.py SCALES/SPECS).
+# v9 l/x remap to c, mirroring the reference's fallthrough for sizes its v9
+# repo doesn't ship (custom_training.py:90-127).
+FAMILY_SCALES = {
+    "yolov8": "nsmlx",
+    "yolov9": "tsmce" + "lx",  # l/x remapped to c below
+    "yolov10": "nsmblx",
+    "yolo11": "nsmlx",
+    "yolo12": "nsmlx",
+}
+
+
 def resolve_model_name(model_version: str, scale: str) -> str:
-    """The build_model name of a (family, scale) pair; only yolov8 is ported."""
-    if model_version != "yolov8":
-        raise NotImplementedError(
-            f"{model_version}: only yolov8 is ported so far (ROADMAP.md A8, the other "
-            "YOLO families)")
-    if scale not in "nsmlx":
-        raise SystemExit(f"yolov8 has no '{scale}' scale; valid scales: n, s, m, l, x")
-    return f"yolov8{scale}"
+    """The build_model name of a (family, scale) pair; a bad pair exits here
+    with the valid scales named."""
+    valid = FAMILY_SCALES.get(model_version)
+    if valid is None:
+        raise SystemExit(f"unknown model_version '{model_version}'; have {sorted(FAMILY_SCALES)}")
+    if scale not in valid:
+        raise SystemExit(
+            f"{model_version} has no '{scale}' scale; valid scales: "
+            f"{', '.join(valid.replace('lx', '') if model_version == 'yolov9' else valid)}"
+            + (" (l/x map to c)" if model_version == "yolov9" else ""))
+    if model_version == "yolov9" and scale in ("l", "x"):
+        return "yolov9c"  # v9 has t/s/m/c/e variants only (models/yolo.py)
+    return f"{model_version}{scale}"
 
 
 def build_ood_method(name: str, cluster_method: str = "one",

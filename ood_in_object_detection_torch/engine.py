@@ -1,7 +1,7 @@
 """Detector facade: one predict step with every OoD tap.
 
 Port of ood_in_object_detection_tpu/engine.py. ``Detector.predict`` runs
-normalise -> YOLOv8 forward -> lazy DFL decode + top-k -> greedy NMS (kernel
+normalise -> YOLO forward -> lazy DFL decode + top-k -> greedy NMS (kernel
 K1) -> RoI and exact-position taps (kernel K2) -> box clip, and returns a
 ``PredictOutput`` with the JAX package's field set and layouts: images come
 in as (B, H, W, 3), neck maps leave as (B, H/s, W/s, C) in the model's
@@ -81,7 +81,10 @@ class Detector:
         x = torch.as_tensor(images).to(self.device)
         if x.dtype == torch.uint8:
             x = x.to(torch.float32) * torch.tensor(1.0 / 255.0, device=x.device)
-        raw, neck = self.model(x.to(torch.float32).permute(0, 3, 1, 2).contiguous())
+        # yolov10's raw maps are its one2one maps (a model in training
+        # returns one2many third, as the JAX model_forward reads out[0] and
+        # out[1], yolo.py:617); every family runs NMS
+        raw, neck = self.model(x.to(torch.float32).permute(0, 3, 1, 2).contiguous())[:2]
         ct = torch.as_tensor(conf_thres, dtype=torch.float32, device=x.device)
         det, logits = fused_detect(raw, self.nc, ct, iou_thres=iou_thres,
                                    max_det=max_det, pre_nms_k=pre_nms_k)

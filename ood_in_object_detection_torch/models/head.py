@@ -1,4 +1,4 @@
-"""YOLOv8 Detect head (port of ood_in_object_detection_tpu/models/head.py).
+"""YOLO Detect head (port of ood_in_object_detection_tpu/models/head.py).
 
 The head returns the raw per-level maps (B, 4*REG_MAX + nc, H, W) with
 pre-sigmoid class logits; decoding happens lazily in ops/fused_detect.py.
@@ -9,7 +9,7 @@ oracle of that lazy path.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -32,37 +32,72 @@ class DFL(nn.Module):
 
 
 class Detect(nn.Module):
-    """Decoupled v8 head: box branch cv2 (Conv3-Conv3-Conv1 to 4*REG_MAX)
-    and class branch cv3 (Conv3-Conv3-Conv1 to nc) per level."""
+    """Decoupled head: box branch cv2 (Conv3-Conv3-Conv1 to 4*REG_MAX) and
+    class branch cv3 to nc per level. ``style`` picks the class branch
+    (head.py:34-91 of the JAX package): "v8" Conv3-Conv3-Conv1; "v11" and
+    "v10" (DWConv3 + Conv1) x 2 + Conv1, the depthwise convs grouped by
+    their input channels. The v10 head is dual: it also holds the
+    one2one_cv2/cv3 copies, so that the reference checkpoint's keys load.
+    Its eval forward runs only the one2one branches (the inference path,
+    as the JAX predict step keeps only them); in training it returns
+    (one2many maps, one2one maps)."""
 
-    def __init__(self, nc: int, ch: Sequence[int]):
+    def __init__(self, nc: int, ch: Sequence[int], style: str = "v8"):
         super().__init__()
+        if style not in ("v8", "v10", "v11"):
+            raise ValueError(f"unknown head style {style}")
         self.nc = nc
+        self.dual = style == "v10"
         c2 = max(16, ch[0] // 4, REG_MAX * 4)
         c3 = max(ch[0], min(nc, 100))
-        self.cv2 = nn.ModuleList(
-            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * REG_MAX, 1))
-            for x in ch)
-        self.cv3 = nn.ModuleList(
-            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1))
-            for x in ch)
+
+        def box(x):
+            return nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * REG_MAX, 1))
+
+        def cls(x):
+            if style == "v8":
+                return nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1))
+            return nn.Sequential(nn.Sequential(Conv(x, x, 3, g=x), Conv(x, c3, 1)),
+                                 nn.Sequential(Conv(c3, c3, 3, g=c3), Conv(c3, c3, 1)),
+                                 nn.Conv2d(c3, nc, 1))
+
+        self.cv2 = nn.ModuleList(box(x) for x in ch)
+        self.cv3 = nn.ModuleList(cls(x) for x in ch)
+        if self.dual:
+            self.one2one_cv2 = nn.ModuleList(box(x) for x in ch)
+            self.one2one_cv3 = nn.ModuleList(cls(x) for x in ch)
         self.dfl = DFL(REG_MAX)
 
-    def bias_init(self) -> None:
-        """Box bias 1.0, class bias log(5 / nc / (640 / s)^2) (reference
-        Detect.bias_init; the JAX package's Conv2dRaw bias inits)."""
-        with torch.no_grad():
-            for box, cls, s in zip(self.cv2, self.cv3, STRIDES):
-                box[-1].bias.fill_(1.0)
-                cls[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+    def _pairs(self):
+        """(box, class) branches: cv2/cv3, then the v10 head's one2one copies."""
+        pairs = [(self.cv2, self.cv3)]
+        if self.dual:
+            pairs.append((self.one2one_cv2, self.one2one_cv3))
+        return pairs
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Raw maps in the neck's dtype (head.py:48-89 with dtype)."""
+    def bias_init(self) -> None:
+        """Box bias 1.0, class bias log(5 / nc / (640 / s)^2), on every
+        branch (reference Detect.bias_init; the JAX package's Conv2dRaw
+        bias inits)."""
+        with torch.no_grad():
+            for boxes, clss in self._pairs():
+                for box, cls, s in zip(boxes, clss, STRIDES):
+                    box[-1].bias.fill_(1.0)
+                    cls[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        """Raw maps in the neck's dtype (head.py:48-89 with dtype): the
+        dual head's one2one maps alone in eval, both in training."""
         def branch(seq, x):
             return conv_in_dtype(seq[2], seq[1](seq[0](x)))
 
-        return [torch.cat([branch(box, x), branch(cls, x)], dim=1)
-                for x, box, cls in zip(feats, self.cv2, self.cv3)]
+        pairs = self._pairs()
+        if self.dual and not self.training:
+            pairs = pairs[1:]  # one2one alone: the inference path
+        outs = [[torch.cat([branch(box, x), branch(cls, x)], dim=1)
+                 for x, box, cls in zip(feats, boxes, clss)]
+                for boxes, clss in pairs]
+        return tuple(outs) if len(outs) == 2 else outs[0]
 
 
 def make_anchors(hw_per_level: Sequence[Tuple[int, int]], strides=STRIDES,

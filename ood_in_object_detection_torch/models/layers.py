@@ -1,7 +1,8 @@
-"""YOLOv8 layers as PyTorch modules (NCHW).
+"""YOLO layers (v8, v9, v10, 11, 12) as PyTorch modules (NCHW).
 
-Port of ood_in_object_detection_tpu/models/layers.py (Conv, Bottleneck, C2f,
-SPPF, max-pool, upsample); reference ultralytics nn/modules/{conv,block}.py.
+Port of ood_in_object_detection_tpu/models/layers.py and of the CBLinear /
+CBFuse steps of its models/yolo.py; reference ultralytics
+nn/modules/{conv,block}.py.
 Module and attribute names follow ultralytics, so the state_dict that
 ``utils/weight_import.py:export_state_dict`` writes from the JAX variables
 loads here with ``strict=True`` and no renaming table.
@@ -79,15 +80,17 @@ class Bottleneck(nn.Module):
 
 
 class C2f(nn.Module):
-    """CSP bottleneck with 2 convs, fast (reference block.py C2f)."""
+    """CSP bottleneck with 2 convs, fast (reference block.py C2f); ``block(c)``
+    makes each of the n blocks (bottlenecks of e 1.0 by default)."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, e: float = 0.5):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, e: float = 0.5,
+                 block=None):
         super().__init__()
         self.c = int(c2 * e)
         self.cv1 = Conv(c1, 2 * self.c, 1, 1)
         self.cv2 = Conv((2 + n) * self.c, c2, 1)
-        self.m = nn.ModuleList(Bottleneck(self.c, self.c, shortcut, k=(3, 3), e=1.0)
-                               for _ in range(n))
+        block = block or (lambda c: Bottleneck(c, c, shortcut, k=(3, 3), e=1.0))
+        self.m = nn.ModuleList(block(self.c) for _ in range(n))
 
     def forward(self, x):
         y = list(self.cv1(x).split((self.c, self.c), dim=1))
@@ -125,3 +128,419 @@ class Concat(nn.Module):
 
     def forward(self, xs):
         return torch.cat(xs, dim=1)
+
+
+
+def max_pool(x: torch.Tensor, k: int, s: int = 1) -> torch.Tensor:
+    """Max-pool with padding k // 2 filled with -inf (flax max_pool)."""
+    return F.max_pool2d(x, k, s, k // 2)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """flax ``avg_pool(x, (2, 2), strides=(1, 1), padding='VALID')``, rounded
+    as XLA sums the window: row-major, each add in x's dtype (in bf16 each
+    partial sum rounds to bf16); the /4 is exact."""
+    a, b = x[..., :-1, :-1], x[..., :-1, 1:]
+    c, d = x[..., 1:, :-1], x[..., 1:, 1:]
+    return (((a + b) + c) + d) / 4
+
+
+def map_to_tokens(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, H*W, C), tokens row-major as the JAX layers'
+    NHWC reshape orders them."""
+    return x.flatten(2).transpose(1, 2)
+
+
+def tokens_to_map(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, H*W, C) -> (B, C, H, W)."""
+    return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], h, w)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (..., n, d) operands, rounded where the
+    JAX layers round (layers.py:468-474, 553-564): the scores in f32 (a
+    bf16 product is exact in f32), the softmax in f32 cast to v's dtype,
+    the second product in v's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-2, -1))
+    return torch.matmul(torch.softmax(s * scale, dim=-1).to(v.dtype), v)
+
+
+# ---------------------------------------------------------------------------
+# yolo11 / yolo12 blocks
+# ---------------------------------------------------------------------------
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs (reference block.py C3); ``k`` holds the
+    kernels of each ``block``'s two convs."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5,
+                 k=(1, 3), block=Bottleneck):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.m = nn.Sequential(*(block(c_, c_, shortcut, k=k, e=1.0) for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], dim=1))
+
+
+class C3k(C3):
+    """C3 whose bottlenecks take k x k kernels (reference block.py C3k)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5,
+                 k: int = 3):
+        super().__init__(c1, c2, n, shortcut, e, k=(k, k))
+
+
+class C3k2(C2f):
+    """C2f whose blocks are C3k (``c3k``) or bottlenecks of e 0.5
+    (reference block.py C3k2)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5,
+                 shortcut: bool = True):
+        super().__init__(c1, c2, n, shortcut, e, block=lambda c: (
+            C3k(c, c, 2, shortcut) if c3k else Bottleneck(c, c, shortcut, k=(3, 3), e=0.5)))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over the H x W grid with a depthwise 3x3
+    positional conv on v (reference block.py Attention). qkv's channels are
+    per head [q | k | v] of key_dim, key_dim, head_dim."""
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.qkv = Conv(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        qkv = map_to_tokens(self.qkv(x)).reshape(b, h * w, self.num_heads, -1)
+        q, k, v = (t.transpose(1, 2) for t in
+                   qkv.split([self.key_dim, self.key_dim, self.head_dim], dim=-1))
+        out = attend(q, k, v, self.key_dim ** -0.5)  # (b, heads, n, head_dim)
+
+        def as_map(t):
+            return tokens_to_map(t.transpose(1, 2).reshape(b, h * w, c), h, w)
+
+        return self.proj(as_map(out) + self.pe(as_map(v)))
+
+
+class PSABlock(nn.Module):
+    """Attention then a 2x MLP, each with a residual (reference block.py
+    PSABlock)."""
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int = 4):
+        super().__init__()
+        self.attn = Attention(c, num_heads, attn_ratio)
+        self.ffn = nn.Sequential(Conv(c, 2 * c, 1), Conv(2 * c, c, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.ffn(x)
+
+
+class C2PSA(nn.Module):
+    """CSP wrapper around n PSABlocks on half the channels (reference
+    block.py C2PSA)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.m = nn.Sequential(*(PSABlock(self.c, 0.5, self.c // 64) for _ in range(n)))
+
+    def forward(self, x):
+        a, b = self.cv1(x).split((self.c, self.c), dim=1)
+        return self.cv2(torch.cat([a, self.m(b)], dim=1))
+
+
+class PSA(PSABlock):
+    """Position-sensitive attention (reference block.py PSA, yolov10): one
+    PSABlock, held directly as ``attn`` and ``ffn``, on half the channels."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        c = int(c2 * e)
+        super().__init__(c, 0.5, c // 64)
+        self.c = c
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).split((self.c, self.c), dim=1)
+        return self.cv2(torch.cat([a, super().forward(b)], dim=1))
+
+
+class AAttn(nn.Module):
+    """Area attention (reference block.py AAttn, yolo12): the row-major
+    token axis splits into ``area`` groups that attend on their own; qkv's
+    channels are per head [q | k | v] of head_dim each, and the 7x7
+    positional conv reads v in head-major channel order."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.area = area
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.qkv = Conv(dim, 3 * dim, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 7, 1, g=dim, act=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        n = h * w
+        qkv = map_to_tokens(self.qkv(x)).reshape(
+            b * self.area, n // self.area, self.num_heads, 3, self.head_dim)
+        q, k, v = (qkv[:, :, :, i].transpose(1, 2) for i in range(3))
+        out = attend(q, k, v, self.head_dim ** -0.5)  # (b * area, heads, n / area, hd)
+
+        def as_map(t):
+            return tokens_to_map(t.transpose(1, 2).reshape(b, n, c), h, w)
+
+        return self.proj(as_map(out) + self.pe(as_map(v)))
+
+
+class ABlock(nn.Module):
+    """Area attention then an MLP of ``mlp_ratio``, each with a residual
+    (reference block.py ABlock)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2, area: int = 1):
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.attn = AAttn(dim, num_heads, area)
+        self.mlp = nn.Sequential(Conv(dim, hidden, 1), Conv(hidden, dim, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """Area-attention C2f (reference block.py A2C2f, yolo12): n pairs of
+    ABlocks (``a2``) or n C3k blocks; with ``residual`` (yolo12 l/x) the
+    output is ``x + gamma * out``, gamma initialised to 0.01."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True, area: int = 1,
+                 residual: bool = False, mlp_ratio: float = 2.0, e: float = 0.5,
+                 shortcut: bool = True):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv((1 + n) * c_, c2, 1)
+        self.gamma = nn.Parameter(torch.full((c2,), 0.01)) if a2 and residual else None
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area) for _ in range(2))) if a2
+            else C3k(c_, c_, 2, shortcut) for _ in range(n))
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        out = self.cv2(torch.cat(ys, dim=1))
+        if self.gamma is None:
+            return out
+        return x + self.gamma.to(out.dtype)[:, None, None] * out
+
+
+# ---------------------------------------------------------------------------
+# yolov10 blocks
+# ---------------------------------------------------------------------------
+
+
+class SCDown(nn.Module):
+    """Pointwise conv then a depthwise k/s conv (reference block.py SCDown)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x):
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """Depthwise 7x7 and 3x3 branches summed, then SiLU (reference block.py
+    RepVGGDW, train form)."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv = Conv(c, c, 7, 1, g=c, act=False)
+        self.conv1 = Conv(c, c, 3, 1, g=c, act=False)
+
+    def forward(self, x):
+        return silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """Conditional identity block (reference block.py CIB); ``lk`` takes
+    RepVGGDW as the middle depthwise conv."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5,
+                 lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(
+            Conv(c1, c1, 3, g=c1), Conv(c1, 2 * c_, 1),
+            RepVGGDW(2 * c_) if lk else Conv(2 * c_, 2 * c_, 3, g=2 * c_),
+            Conv(2 * c_, c2, 1), Conv(c2, c2, 3, g=c2))
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f with CIB blocks (reference block.py C2fCIB)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False,
+                 e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, e,
+                         block=lambda c: CIB(c, c, shortcut, e=1.0, lk=lk))
+
+
+# ---------------------------------------------------------------------------
+# yolov9 blocks
+# ---------------------------------------------------------------------------
+
+
+class RepConvN(nn.Module):
+    """RepConv in its train form: k x k and 1x1 conv branches summed, then
+    SiLU (reference conv.py RepConvN; the JAX package's RepConvDW)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, k, s, act=False)
+        self.conv2 = Conv(c1, c2, 1, s, act=False)
+
+    def forward(self, x):
+        return silu(self.conv1(x) + self.conv2(x))
+
+
+class RepBottleneck(Bottleneck):
+    """Bottleneck whose first conv is RepConvN (reference block.py RepBottleneck)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, k=(3, 3), e: float = 0.5):
+        super().__init__(c1, c2, shortcut, k, e)
+        self.cv1 = RepConvN(c1, int(c2 * e), k[0], 1)
+
+
+class RepCSP(C3):
+    """C3 of RepBottlenecks (reference block.py RepCSP)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, True, e, k=(3, 3), block=RepBottleneck)
+
+
+class RepNCSPELAN4(nn.Module):
+    """GELAN block (reference block.py RepNCSPELAN4); ``c3`` and ``c4`` are
+    taken as given, not width-scaled."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1):
+        super().__init__()
+        self.c = c3 // 2
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2 = nn.Sequential(RepCSP(c3 // 2, c4, n), Conv(c4, c4, 3, 1))
+        self.cv3 = nn.Sequential(RepCSP(c4, c4, n), Conv(c4, c4, 3, 1))
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1, 1)
+
+    def forward(self, x):
+        y = list(self.cv1(x).split((self.c, self.c), dim=1))
+        y.append(self.cv2(y[-1]))
+        y.append(self.cv3(y[-1]))
+        return self.cv4(torch.cat(y, dim=1))
+
+
+class ELAN1(nn.Module):
+    """RepNCSPELAN4 with plain 3x3 convs in place of RepCSP + Conv
+    (reference block.py ELAN1)."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int):
+        super().__init__()
+        self.c = c3 // 2
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv2 = Conv(c3 // 2, c4, 3, 1)
+        self.cv3 = Conv(c4, c4, 3, 1)
+        self.cv4 = Conv(c3 + 2 * c4, c2, 1, 1)
+
+    forward = RepNCSPELAN4.forward
+
+
+class ADown(nn.Module):
+    """2x2/s1 average pool, then half the channels through a 3x3/s2 conv and
+    half through a 3x3/s2 max-pool and a 1x1 conv (reference block.py ADown)."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.c = c2 // 2
+        self.cv1 = Conv(c1 // 2, self.c, 3, 2)
+        self.cv2 = Conv(c1 // 2, self.c, 1, 1)
+
+    def forward(self, x):
+        x1, x2 = avg_pool2(x).chunk(2, dim=1)
+        return torch.cat([self.cv1(x1), self.cv2(max_pool(x2, 3, 2))], dim=1)
+
+
+class AConv(nn.Module):
+    """2x2/s1 average pool then a 3x3/s2 conv (reference block.py AConv)."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 3, 2)
+
+    def forward(self, x):
+        return self.cv1(avg_pool2(x))
+
+
+class SPPELAN(nn.Module):
+    """SPP-ELAN (reference block.py SPPELAN): three chained k x k max-pools
+    after a 1x1 conv, all four concatenated into cv5."""
+
+    def __init__(self, c1: int, c2: int, c3: int, k: int = 5):
+        super().__init__()
+        self.k = k
+        self.cv1 = Conv(c1, c3, 1, 1)
+        self.cv5 = Conv(4 * c3, c2, 1, 1)
+
+    def forward(self, x):
+        y = [self.cv1(x)]
+        for _ in range(3):
+            y.append(max_pool(y[-1], self.k))
+        return self.cv5(torch.cat(y, dim=1))
+
+
+class CBLinear(nn.Module):
+    """A biased 1x1 conv whose output splits into channel chunks (reference
+    block.py CBLinear, yolov9e)."""
+
+    def __init__(self, c1: int, c2s):
+        super().__init__()
+        self.c2s = list(c2s)
+        self.conv = nn.Conv2d(c1, sum(self.c2s), 1, 1, 0, bias=True)
+
+    def forward(self, x):
+        return conv_in_dtype(self.conv, x).split(self.c2s, dim=1)
+
+
+class CBFuse(nn.Module):
+    """Chunk ``idx[i]`` of each CBLinear input, nearest-resized to the last
+    input's grid and added to it in order (reference block.py CBFuse; the
+    JAX package's order of the sums)."""
+
+    def __init__(self, idx):
+        super().__init__()
+        self.idx = list(idx)
+
+    def forward(self, xs):
+        acc = xs[-1]
+        for i, src in zip(self.idx, xs[:-1]):
+            acc = acc + F.interpolate(src[i], size=acc.shape[2:], mode="nearest")
+        return acc

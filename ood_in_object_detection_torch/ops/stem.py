@@ -35,8 +35,8 @@ import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-3
-# the widths K4 takes: every YOLOv8 scale's (C1 16 .. 80, C2 32 .. 160),
-# multiples of 8
+# the widths K4 takes, multiples of 8: every scale's stem but yolo11x's and
+# yolo12x's (C1 96, C2 192), which run as two Conv modules (ROADMAP B-R10)
 K4_C1_RANGE = (16, 80)
 K4_C2_RANGE = (32, 160)
 
@@ -228,6 +228,13 @@ def k4_operands(w1, bn1, w2, bn2, dtype: torch.dtype):
     return k4_pack_f32(w1, bn1, w2, bn2)
 
 
+def k4_takes(c1: int, c2: int) -> bool:
+    """Whether K4 takes a stem of these widths; the model's stem gate
+    (models/yolo.py:YOLODetector.stem_route) asks this on every device."""
+    (lo, hi), (lo2, hi2) = K4_C1_RANGE, K4_C2_RANGE
+    return lo <= c1 <= hi and lo2 <= c2 <= hi2 and c1 % 8 == 0 and c2 % 8 == 0
+
+
 def check_k4_shapes(x_shape, c1: int, c2: int) -> None:
     """Raise on a shape K4 does not take."""
     b, cin, h, w = x_shape
@@ -236,7 +243,7 @@ def check_k4_shapes(x_shape, c1: int, c2: int) -> None:
         raise ValueError(f"fused_stem: K4 takes (B, 3, H, W) images with H, W multiples "
                          f"of 4, got {tuple(x_shape)}")
     lo2, hi2 = K4_C2_RANGE
-    if not (lo <= c1 <= hi and lo2 <= c2 <= hi2 and c1 % 8 == 0 and c2 % 8 == 0):
+    if not k4_takes(c1, c2):
         raise ValueError(f"fused_stem: K4 takes C1 in [{lo}, {hi}] and C2 in [{lo2}, {hi2}], "
                          f"multiples of 8, got C1={c1}, C2={c2}")
 

@@ -1,9 +1,10 @@
 """Weights across the two packages.
 
 The JAX package's ``utils/weight_import.py:export_state_dict(variables,
-detect_layer_idx=22)`` writes an ultralytics-named, torch-layout numpy
-state_dict; this port names its modules the same way, so that dict loads
-with ``strict=True`` and no renaming table.
+detect_layer_idx)`` (the port model's ``detect_layer_idx``: 22 for yolov8)
+writes an ultralytics-named, torch-layout numpy state_dict; this port
+names its modules the same way, so that dict loads with ``strict=True``
+and no renaming table.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ import numpy as np
 import torch
 from torch import nn
 
-# the detect head's final 1x1 convs: box (cv2) and class (cv3) outputs
-HEAD_OUTPUT_KEY = re.compile(r"^model\.\d+\.cv[23]\.\d\.2\.(weight|bias)$")
+# the detect head's final 1x1 convs: box (cv2) and class (cv3) outputs,
+# and yolov10's one2one copies of them (its inference branch)
+HEAD_OUTPUT_KEY = re.compile(r"^model\.\d+\.(one2one_)?cv([23])\.\d\.2\.(weight|bias)$")
 BOX_BIN_SLOPE = 0.5  # spread_detect_head: DFL bias drop per bin
 
 
@@ -74,7 +76,7 @@ def spread_detect_head(state_dict: Dict[str, np.ndarray], seed: int,
             out[k] = v * f.reshape(-1, 1, 1, 1)
         else:
             b = rng.normal(0.0, 1.0, v.shape)
-            if ".cv2." in k:  # 4 sides x REG_MAX bins
+            if HEAD_OUTPUT_KEY.match(k).group(2) == "2":  # 4 sides x REG_MAX bins
                 b -= BOX_BIN_SLOPE * (np.arange(v.shape[0]) % (v.shape[0] // 4))
             out[k] = b.astype(np.float32)
     return out

@@ -326,6 +326,69 @@ def test_fused_stem_launch_on_folded_operands(dev, dtype):
     assert torch.equal(got, S.fused_stem(x, *convs, dtype))
 
 
+def family_model(name, nc=2, img=64):
+    """A seeded ``name`` on the CPU, BatchNorm-calibrated on seeded noise
+    and head-spread (utils/weights.py), in eval mode."""
+    from ood_in_object_detection_torch.models import build_model, init_weights
+    from ood_in_object_detection_torch.utils.weights import (calibrate_batchnorm,
+                                                             load_jax_variables,
+                                                             numpy_state_dict, spread_detect_head)
+
+    m = build_model(name, nc=nc)
+    init_weights(m, torch.Generator().manual_seed(0))
+    x = torch.tensor(np.random.default_rng(0).uniform(0, 1, (2, 3, img, img)),
+                     dtype=torch.float32)
+    calibrate_batchnorm(m, x)
+    load_jax_variables(m, spread_detect_head(numpy_state_dict(m), seed=1))
+    return m.eval()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["yolov10n", "yolo12l"])
+def test_fused_stem_kernel_on_family_stem(dev, name, dtype):
+    """K4 on a yolov10n (C1 16, C2 32) and a yolo12l (C1 64, C2 128) stem,
+    calibrated, at 640 px, against its plain version and its contract."""
+    m = family_model(name).to(dev)
+    assert m.stem_route == "fused"
+    convs = (m.model[0], m.model[1])
+    params = S.stem_conv_params(*convs)
+    x = torch.tensor(np.random.default_rng(1).uniform(0, 1, (2, 3, 640, 640)),
+                     dtype=torch.float32, device=dev)
+    before = S.fused_stem.launches
+    got = S.fused_stem(x, *convs, dtype).float()
+    assert S.fused_stem.launches == before + 1
+    torch.cuda.synchronize()
+    ref = S.fused_stem_plain(x, *params, dtype).float()
+    tol_plain, tol_contract = STEM_TOL[dtype]
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= tol_plain * scale
+    assert float((got - k4_contract(x, *params, dtype).float()).abs().max()) <= tol_contract * scale
+
+
+def test_v10_predict_keep_matches_plain_nms(dev):
+    """yolov10n's predict on the card decodes its one2one maps and runs NMS
+    (K1 once, K4 once, K2 per level): the keep masks of its candidates equal
+    the plain greedy NMS's."""
+    from ood_in_object_detection_torch.engine import Detector
+    from ood_in_object_detection_torch.ops.fused_detect import select_candidates
+
+    card = Detector(model=family_model("yolov10n", nc=3, img=320).to(dev), img_size=320)
+    images = np.random.default_rng(2).integers(0, 256, (4, 320, 320, 3), dtype=np.uint8)
+    before = (N.greedy_keep.launches, S.fused_stem.launches, R.roi_contract.launches)
+    out = card.predict(images, conf_thres=0.25)
+    assert (N.greedy_keep.launches - before[0], S.fused_stem.launches - before[1]) == (1, 1)
+    assert R.roi_contract.launches > before[2]
+    x = torch.from_numpy(images).to(dev).permute(0, 3, 1, 2).float() * (1.0 / 255.0)
+    with torch.no_grad():
+        o2o = card.model(x.contiguous())[0]
+    cand = select_candidates(o2o, 3, 0.25, pre_nms_k=1024)
+    shifted, valid = N.nms_inputs(cand.boxes, cand.conf, cand.cls,
+                                  torch.tensor(0.25, device=dev))
+    assert valid.sum() > 10
+    assert torch.equal(N.greedy_keep(shifted, valid, 0.7), N.greedy_keep_plain(shifted, valid, 0.7))
+    assert int(out.det.valid.sum()) > 0
+
+
 @pytest.mark.parametrize("c1,c2,shape", [(96, 192, (1, 3, 64, 64)), (64, 36, (1, 3, 64, 64)),
                                          (16, 32, (1, 4, 64, 64))])
 def test_fused_stem_kernel_refuses_shapes(dev, c1, c2, shape):

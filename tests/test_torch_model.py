@@ -38,7 +38,7 @@ def shared_weights(name: str, nc: int, seed: int = 0, calib=None, spread: float 
     jm = jax_build_model(name, nc=nc)
     variables = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, IMG, IMG, 3)), train=False)
     tm = build_model(name, nc=nc)
-    load_jax_variables(tm, export_state_dict(variables, detect_layer_idx=22))
+    load_jax_variables(tm, export_state_dict(variables, detect_layer_idx=tm.detect_layer_idx))
     for m in tm.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             torch.nn.init.constant_(m.weight, bn_scale)
@@ -48,7 +48,8 @@ def shared_weights(name: str, nc: int, seed: int = 0, calib=None, spread: float 
     calibrate_batchnorm(tm, calib)
     sd = spread_detect_head(numpy_state_dict(tm), seed=seed + 1, scale=spread)
     load_jax_variables(tm, sd)
-    variables, missing = import_state_dict(variables, sd, detect_layer_idx=22, strict=True)
+    variables, missing = import_state_dict(variables, sd, detect_layer_idx=tm.detect_layer_idx,
+                                           strict=True)
     assert not missing
     return jm, variables, tm.eval()
 
@@ -80,12 +81,8 @@ def test_neck_channels_match_jax(models):
 
 def test_state_dict_keys_are_ultralytics_names(models):
     _, variables, tm = models
-    assert set(tm.state_dict()) == set(export_state_dict(variables, detect_layer_idx=22))
-
-
-def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_model("yolo11n")
+    assert set(tm.state_dict()) == set(export_state_dict(variables,
+                                                         detect_layer_idx=tm.detect_layer_idx))
 
 
 def test_detector_create_defaults_to_the_card():
