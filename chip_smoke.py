@@ -48,19 +48,32 @@ script exits non-zero without printing a result):
    (K4's counter) once per OoD batch over all combinations. K3 is then
    held against its plain version at the fitted 'all' and 'KMeans' banks
    on the OoD batch's features (``cluster_banks`` in the kernels line).
-6. e2e_bf16 (the --bf16 path): the same weights and batches in a bf16
+6. e2e_serve (the serving path on the f32 path): e2e's detector saved as
+   a checkpoint (core/checkpoint.py) and loaded onto the card, bit-equal;
+   cli.ood_eval --model_path for MSP and Cosine_cl_stride on e2e's batches
+   written as datasets (the caches must carry the checkpoint's stem);
+   cli.predict --model_path on 16 PNGs with the fitted Cosine_cl_stride
+   verdicts, its predictions.json equal to predict + decisions of the same
+   letterboxed batches; a MicroBatchServer (batch 8, 2 ms wait, the fitted
+   method attached) under 8 closed-loop client threads, 64 requests, then a
+   lone request that pads a partial group: every result equal to a direct
+   predict of its group, served images/s, p50 and p99 latency, launches per
+   group; one full served group against the CPU's plain versions within
+   REF_LIMITS. The counters are reset just before and read just after the
+   predict CLI and the server, and K1-K4 must have launched in each.
+7. e2e_bf16 (the --bf16 path): the same weights and batches in a bf16
    detector (f32 parameters, bf16 compute and taps), extract -> fit ->
    evaluate again with the counters reset; K4 and K2's bf16 route must have
    launched. Prints the bf16 predict step and the share of detections and of
    per-box decisions that differ from the f32 path, each under a ceiling.
-7. reference: one image through the card (kernels) and through the CPU
+8. reference: one image through the card (kernels) and through the CPU
    (plain PyTorch versions) with the same weights; maps, detections and
    taps must agree within REF_LIMITS, and each layer (the stem also
    through fused_stem, K4 on the card) within LAYER_REL_TOL on the CPU's
    own input to it.
-8. profile, profile_bf16: device time of the predict step by kernel
+9. profile, profile_bf16: device time of the predict step by kernel
    (torch.profiler).
-9. kernels: each kernel against its plain PyTorch version on the card, on
+10. kernels: each kernel against its plain PyTorch version on the card, on
    tensors captured from the main paths (plus controlled, chain, k = 4096,
    (2, 8400) and k = 16384 NMS cases, K 5 and K 200 centroid banks with
    masked centroids and empty groups, yolov8n's stem widths and a corner
@@ -76,9 +89,10 @@ script exits non-zero without printing a result):
    launcher alone on operands folded once (kernel_ms). K2 (f32) and K3 also
    carry ``eul_rank``: their numbers at the EUL rank's inputs, and K3
    ``cluster_banks``: its numbers at the sweep's fitted banks. Launch
-   counts add up every main path's run (e2e, e2e_eul, e2e_sweeps, e2e_bf16);
+   counts add up every main path's run (e2e, e2e_eul, e2e_sweeps, e2e_serve,
+   e2e_bf16);
    e2e_families' entries carry their own model's counts.
-10. e2e_families (the other YOLO families on the f32 path): yolov9c,
+11. e2e_families (the other YOLO families on the f32 path): yolov9c,
    yolov10l, yolo11l and yolo12l (the l models of the paper's V9-V12
    results) at 640 px, nc=20, batch 8, TF32 off, seeded, BatchNorm
    calibrated and head spread as in e2e, 2 InD batches and one OoD batch
@@ -94,7 +108,12 @@ script exits non-zero without printing a result):
    against their plain versions on the model's own tensors, as kernel
    entries tagged with the model. yolo12l runs again
    in bf16 (attention, K2b and K4's bf16 route at full width).
-11. stem_parts (the stem probe ladder's path): the ladder entry point
+12. e2e_xscale (K4's second specialization, C1 96 / C2 192): yolo11x
+   seeded, BatchNorm calibrated and head spread, one predict step in f32
+   and in bf16 with the counters reset just before and read just after (K4
+   once each), then K4 against its plain version on that stem, kernel
+   entries tagged ``model: yolo11x``.
+13. stem_parts (the stem probe ladder's path): the ladder entry point
    (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
    driven through all four ladders at full size, z (128, 160(+2), 160, 48)
    bf16, with the counters reset just before and read just after; the
@@ -722,6 +741,341 @@ def phase_e2e_sweeps(torch, det):
     return total, banks
 
 
+# the serving path (e2e_serve): requests, client threads, the collector's wait
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_WAIT_MS = 64, 8, 2.0
+PREDICT_IMAGES = 16
+SERVE_KERNELS = ("greedy_keep", "roi_contract", "min_group_distances", "fused_stem")
+
+
+def _delta(before: dict) -> dict:
+    after = read_counters()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _added(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _serve_check_rows(torch, det, method, batch, rows, results) -> dict:
+    """The served results of one stacked batch (``rows``: request index per
+    row) against a direct predict and decisions of the same batch on the
+    card: counts, classes and verdicts equal, boxes, scores and logits bit
+    for bit. -> the direct PredictOutput and the count of mismatches."""
+    from ood_in_object_detection_torch.ood.pipeline import _decisions_for_method, _np
+
+    with torch.no_grad():
+        out = det.predict(batch, conf_thres=CONF)
+        dec = _np(_decisions_for_method(method, out, det.neck_channels()))
+    boxes, conf, cls, valid, logits = (_np(t) for t in (out.det.boxes, out.det.conf,
+                                                        out.det.cls, out.det.valid, out.logits))
+    bad = 0
+    for j, k in enumerate(rows):
+        r, v = results[k], valid[j]
+        same = (r is not None and r["num_valid"] == int(v.sum())
+                and np.array_equal(r["boxes"], boxes[j][v]) and np.array_equal(r["conf"], conf[j][v])
+                and np.array_equal(r["cls"], cls[j][v]) and np.array_equal(r["logits"], logits[j][v])
+                and np.array_equal(r["is_ood"], dec[j][v] == 0))
+        bad += not same
+    return dict(out=out, mismatches=bad)
+
+
+def phase_e2e_serve(torch, det, ind, ood, env):
+    """The serving path on e2e's detector (yolov8l, f32, its seeded weights):
+    a checkpoint round trip, cli.ood_eval --model_path (MSP and
+    Cosine_cl_stride), cli.predict --model_path with the fitted Cosine
+    verdicts on PREDICT_IMAGES PNGs, a MicroBatchServer with that method
+    under SERVE_CLIENTS closed-loop clients and a lone request, and one
+    served group against the CPU's plain versions within REF_LIMITS. The
+    counters are reset just before and read just after each of the three
+    runs; K1-K4 must launch in the predict CLI and in the server. -> the
+    launches of the three runs."""
+    import copy
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    from PIL import Image
+
+    from ood_in_object_detection_torch import constants as C
+    from ood_in_object_detection_torch.cli import ood_eval as E
+    from ood_in_object_detection_torch.cli import predict as P
+    from ood_in_object_detection_torch.core.checkpoint import (load_checkpoint, save_checkpoint,
+                                                               state_dict_equal)
+    from ood_in_object_detection_torch.data.letterbox import scale_boxes_back
+    from ood_in_object_detection_torch.engine import Detector
+    from ood_in_object_detection_torch.ood.pipeline import _decisions_for_method, _np
+    from ood_in_object_detection_torch.serving import MicroBatchServer, _split_output
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
+    root = Path(tmp.name)
+    paths = (C.RESULTS_PATH, C.STORAGE_PATH)
+    C.RESULTS_PATH, C.STORAGE_PATH = root / "results", root / "storage"
+    failures = []
+    try:
+        # 1. the checkpoint, saved and loaded onto the card, bit for bit
+        ckpt = root / "v8l_serve"
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, det.model, {"name": ckpt.name, "nc": NC}, MODEL)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sd, meta = load_checkpoint(ckpt, map_location=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bit_equal = state_dict_equal(sd, det.model.state_dict())
+        if not bit_equal or meta["nc"] != NC or meta["model_name"] != MODEL or \
+                any(t.device.type != torch.device(DEVICE).type for t in sd.values()):
+            failures.append(f"checkpoint round trip: bit_equal {bit_equal}, meta {meta}")
+        checkpoint = dict(save_s=save_s, load_s=load_s, tensors=len(sd), bit_equal=bit_equal,
+                          bytes=(ckpt / "state.pt").stat().st_size, meta=meta)
+        del sd
+
+        # 2. the eval CLI on the checkpoint
+        ind_yaml, ood_yaml = write_dataset(root / "ind", ind), write_dataset(root / "ood", ood)
+        evals, eval_launches = {}, []
+        for m in ("MSP", "Cosine_cl_stride"):
+            before, t0 = read_counters(), time.perf_counter()
+            (row,) = E.main(["--ood_method", m, "--model_path", str(ckpt),
+                             "--ind_dataset", str(ind_yaml), "--ood_datasets", str(ood_yaml),
+                             "--img_size", str(IMG), "--batch_size", str(BATCH),
+                             "--conf_thr_train", str(CONF), "--conf_thr_test", str(CONF),
+                             "--device", "0", "--name", "chip_smoke_serve"])
+            torch.cuda.synchronize()
+            eval_launches.append(_delta(before))
+            owod = {k: row[k] for k in row if k.endswith("(COOD)")}
+            evals[m] = dict(seconds=time.perf_counter() - t0, owod=owod)
+            if len(owod) != 4 or not all(np.isfinite(v) for v in owod.values()):
+                failures.append(f"ood_eval --model_path {m}: bad OWOD row {owod}")
+        caches = sorted(p.name for p in C.STORAGE_PATH.iterdir())
+        if len(caches) != 8 or not all(f.startswith("torch_") and f"_{ckpt.name}_" in f
+                                       for f in caches):
+            failures.append(f"ood_eval --model_path: caches not keyed by the checkpoint: {caches}")
+        (thr,) = C.STORAGE_PATH.glob("torch_roi_aligned_ftmaps_*_thresholds.pkl")
+        (cl,) = C.STORAGE_PATH.glob("torch_roi_aligned_ftmaps_*_one_clusters.pkl")
+
+        # 3. the predict CLI with the fitted verdicts, against predict +
+        # decisions of the same letterboxed batches
+        src = root / "predict_src"
+        src.mkdir()
+        pred_imgs = np.concatenate([ood[0]["images"], ind[0]["images"]])[:PREDICT_IMAGES]
+        for i, im in enumerate(pred_imgs):
+            Image.fromarray(im).save(src / f"p{i:02d}.png")
+        argv = ["--source", str(src), "--model_path", str(ckpt), "--img_size", str(IMG),
+                "--batch_size", str(BATCH), "--conf", str(CONF), "--ood_method",
+                "Cosine_cl_stride", "--ood_thresholds", str(thr), "--ood_clusters", str(cl),
+                "--save_json", "--no_save", "--save_dir", str(root / "pred"), "--device", "0"]
+        reset_counters()
+        t0 = time.perf_counter()
+        recs = P.main(argv)
+        torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        predict_launches = read_counters()
+        if not all(predict_launches[k] for k in SERVE_KERNELS):
+            failures.append(f"predict CLI did not launch K1-K4: {predict_launches}")
+        if json.loads((root / "pred" / "predictions.json").read_text()) != recs:
+            failures.append("predict CLI: predictions.json differs from its records")
+        method = P.load_ood_method(P.build_parser().parse_args(argv))
+        want = []
+        files = P.collect_sources([str(src)])
+        for start in range(0, len(files), BATCH):
+            group = files[start:start + BATCH]
+            batch, pads, origs, _ = P.letterbox_group(group, IMG, BATCH)
+            with torch.no_grad():
+                out = det.predict(batch, conf_thres=CONF)
+                dec = _np(_decisions_for_method(method, out, det.neck_channels()))
+            boxes, conf, cls, valid = (_np(t) for t in (out.det.boxes, out.det.conf,
+                                                        out.det.cls, out.det.valid))
+            for i, p in enumerate(group):
+                n = int(valid[i].sum())
+                b = scale_boxes_back(boxes[i, :n], pads[i], origs[i])
+                want += [dict(image=str(p), bbox=b[j], category=int(cls[i, j]),
+                              score=float(conf[i, j]), is_ood=bool(dec[i, j] == 0))
+                         for j in range(n)]
+        same = len(recs) == len(want) and all(
+            (r["image"], r["category"], r["is_ood"]) == (w["image"], w["category"], w["is_ood"])
+            for r, w in zip(recs, want))
+        box_err = max([float(np.abs(np.asarray(r["bbox"]) - w["bbox"]).max())
+                       for r, w in zip(recs, want)] + [0.0])
+        score_err = max([abs(r["score"] - w["score"]) for r, w in zip(recs, want)] + [0.0])
+        if not same or box_err > 1e-3 or score_err > 1e-5 or not recs:
+            failures.append(f"predict CLI against predict + decisions: {len(recs)} vs "
+                            f"{len(want)} records, equal {same}, box err {box_err}, score "
+                            f"err {score_err}")
+        predict = dict(seconds=predict_s, images=len(files), detections=len(recs),
+                       ood_share=sum(r["is_ood"] for r in recs) / max(len(recs), 1),
+                       launches=predict_launches, box_abs_err_px=box_err,
+                       score_abs_err=score_err, images_per_s_with_io=len(files) / predict_s)
+
+        # 4. the micro-batch server under closed-loop clients, then a lone request
+        serve_imgs = np.concatenate(make_batches(np.random.default_rng(SEED + 30),
+                                                 SERVE_REQUESTS // BATCH))
+        views = [serve_imgs[k] for k in range(SERVE_REQUESTS)] + [serve_imgs[0].copy()]
+        index = {id(v): k for k, v in enumerate(views)}
+        results, lat, errors, groups = [None] * len(views), [0.0] * len(views), [], []
+        srv = MicroBatchServer(det, batch_size=BATCH, max_wait_ms=SERVE_WAIT_MS, conf_thres=CONF,
+                               ood_method=method)
+        collect = srv._collect
+
+        def recording_collect():  # each group's requests, in the rows' order
+            group = collect()
+            if group is not None:
+                groups.append([index[id(r.image)] for r in group])
+            return group
+
+        srv._collect = recording_collect  # before start(): its thread's first wait
+        t0 = time.perf_counter()
+        srv.start()
+        warmup_s = time.perf_counter() - t0
+
+        ready = threading.Barrier(SERVE_CLIENTS)
+
+        def client(c):
+            ready.wait(timeout=60)  # the clients start together
+            for k in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                t = time.perf_counter()
+                try:
+                    results[k] = srv.predict_one(views[k])
+                except Exception as e:  # noqa: BLE001 (reported below)
+                    errors.append(f"request {k}: {e!r}")
+                lat[k] = time.perf_counter() - t
+
+        try:
+            reset_counters()
+            threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            serve_launches = read_counters()
+            n_groups = len(groups)
+            t = time.perf_counter()
+            results[-1] = srv.predict_one(views[-1])
+            lat[-1] = time.perf_counter() - t
+            lone_launches = _delta(serve_launches)
+        finally:
+            srv.stop()
+        if errors or any(t.is_alive() for t in threads) or any(r is None for r in results):
+            failures.append(f"server: {len(errors)} failed requests {errors[:3]}")
+        if not all(serve_launches[k] for k in SERVE_KERNELS):
+            failures.append(f"server did not launch K1-K4: {serve_launches}")
+        mismatches, first = 0, None
+        for rows in groups:
+            batch = np.zeros((BATCH, IMG, IMG, 3), np.uint8)
+            batch[:len(rows)] = np.stack([views[k] for k in rows])
+            chk = _serve_check_rows(torch, det, method, batch, rows, results)
+            mismatches += chk["mismatches"]
+            if first is None and len(rows) == BATCH:
+                first = (batch, rows, chk["out"])
+        if mismatches or groups[-1] != [SERVE_REQUESTS]:
+            failures.append(f"server: {mismatches} results differ from a direct predict of their "
+                            f"group; last group {groups[-1]}")
+        ms = np.asarray(lat[:SERVE_REQUESTS]) * 1e3
+        # a full group's device step, its decisions and the split, each alone
+        batch = first[0] if first is not None else serve_imgs[:BATCH]
+        with torch.no_grad():
+            out = det.predict(batch, conf_thres=CONF)
+            dec = _decisions_for_method(method, out, det.neck_channels())
+            group_ms = dict(
+                predict=cuda_ms(lambda: det.predict(batch, conf_thres=CONF), reps=10),
+                decisions=cuda_ms(lambda: _decisions_for_method(method, out,
+                                                                det.neck_channels()), reps=10),
+                split=host_s(lambda: _split_output(out, BATCH, dec), reps=10) * 1e3)
+        serve = dict(requests=SERVE_REQUESTS, clients=SERVE_CLIENTS, batch=BATCH,
+                     max_wait_ms=SERVE_WAIT_MS, warmup_s=warmup_s, wall_s=wall,
+                     images_per_s=SERVE_REQUESTS / wall,
+                     latency_ms=dict(p50=float(np.percentile(ms, 50)),
+                                     p99=float(np.percentile(ms, 99)), mean=float(ms.mean()),
+                                     max=float(ms.max())),
+                     groups=n_groups, group_sizes=[len(g) for g in groups[:n_groups]],
+                     launches=serve_launches,
+                     launches_per_group={k: serve_launches[k] / n_groups for k in SERVE_KERNELS},
+                     lone_request=dict(group=len(groups[-1]), latency_ms=lat[-1] * 1e3,
+                                       launches=lone_launches),
+                     group_ms=group_ms,
+                     group_ms_is="a full group alone: predict (CUDA events), the fitted "
+                                 "method's decisions (CUDA events), _split_output with its "
+                                 "copy to the host (host clock)",
+                     mismatches=mismatches)
+
+        # 5. one full served group on the card against the CPU's plain versions
+        if first is None:
+            raise AssertionError(f"server: no full group among {[len(g) for g in groups]}")
+        batch, rows, g = first
+        cpu = Detector(model=copy.deepcopy(det.model).cpu(), img_size=IMG)
+        c = cpu.predict(batch, conf_thres=CONF)
+        with torch.no_grad():
+            x = torch.from_numpy(batch).float().permute(0, 3, 1, 2) * (1.0 / 255.0)
+            raw_g, raw_c = det.model(x.to(DEVICE))[0], cpu.model(x)[0]
+        map_err = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(raw_g, raw_c))
+        raw_abs_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(raw_g, raw_c))
+        limits, readings = REF_LIMITS[MODEL], []
+        for i in range(len(rows)):
+            r = detection_errors(torch, g, c, i, raw_abs_err)
+            r["errors"] = dict(raw_map_rel_err=map_err, **r["errors"])
+            readings.append(r)
+            if not within_ref_limits(r, limits):
+                failures.append(f"served group image {i}: card and CPU disagree: {r}")
+        worst = {k: (min if k == "overlap" else max)(r["errors"][k] for r in readings)
+                 for k in readings[0]["errors"]}
+        reference = dict(images=len(rows), worst=worst, limits=limits,
+                         cls_equal=all(r["cls_equal"] for r in readings),
+                         detections_card=sum(r["detections_card"] for r in readings),
+                         detections_cpu=sum(r["detections_cpu"] for r in readings))
+    finally:
+        C.RESULTS_PATH, C.STORAGE_PATH = paths
+        tmp.cleanup()
+    emit("e2e_serve", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, dtype="float32",
+         card=env["nvidia_smi"], checkpoint=checkpoint, ood_eval=evals, cache_files=caches,
+         predict=predict, serve=serve, reference=reference,
+         phase_seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("e2e_serve: " + "; ".join(failures))
+    return _added(*eval_launches, predict_launches, serve_launches, lone_launches)
+
+
+def phase_xscale_stem(torch, images) -> list:
+    """K4's second specialization (C1 96, C2 192) on yolo11x's stem: the
+    model seeded, BatchNorm calibrated on ``images`` and head spread, its
+    predict step (the serving path's device step) in f32 and bf16 with the
+    counters reset just before and read just after; K4 must launch. Then K4
+    against its plain version on that stem and images, as kernel entries
+    tagged with the model."""
+    from ood_in_object_detection_torch.engine import Detector
+
+    name = "yolo11x"
+    det = family_detector(torch, name, [images], seed=SEED + 40)
+    if det.model.stem_route != "fused" or det.model.stem_widths != (96, 192):
+        raise AssertionError(f"{name}: stem route {det.model.stem_route}, widths "
+                             f"{det.model.stem_widths}")
+    det16 = Detector.create(name, nc=NC, img_size=IMG, device=DEVICE, dtype=torch.bfloat16)
+    det16.model.load_state_dict(det.model.state_dict())
+    entries, lines = [], {}
+    for d, dt, key in ((det, torch.float32, "f32"), (det16, torch.bfloat16, "bf16")):
+        reset_counters()
+        out = d.predict(images, conf_thres=CONF)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        if launches["fused_stem"] != 1:
+            raise AssertionError(f"{name} {key}: K4 did not launch once a step: {launches}")
+        for t in (out.det.boxes, out.det.conf, out.logits, out.roi_feats.float()):
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"{name} {key}: non-finite predict output")
+        lines[key] = dict(launches=launches,
+                          predict_step_ms=cuda_ms(lambda: d.predict(images, conf_thres=CONF),
+                                                  reps=5),
+                          detections_per_image=float(out.det.valid.sum(1).float().mean()))
+        with torch.no_grad():
+            entries.append(family_stem_entry(torch, d, images, launches["fused_stem"], name, dt))
+    emit("e2e_xscale", model=name, stem_route=det.model.stem_route,
+         stem_widths=list(det.model.stem_widths),
+         params=sum(p.numel() for p in det.model.parameters()), **lines)
+    del det, det16
+    torch.cuda.empty_cache()
+    return entries
+
+
 def flip_shares(det32, det16, methods32, methods16, ood):
     """Share of detections (image, anchor) found by one precision only, and
     of per-box decisions that differ on the detections both found."""
@@ -898,29 +1252,48 @@ def reference_reading(torch, det, images, fault: float = 0.0) -> dict:
         if hook is not None:
             hook.remove()
     map_err = max(float((a.cpu() - b).abs().max() / b.abs().max()) for a, b in zip(raw_g, raw_c))
-    ga, ca = g.anchor_idx[0][g.det.valid[0]].cpu(), c.anchor_idx[0][c.det.valid[0]]
+    raw_abs_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(raw_g, raw_c))
+    r = detection_errors(torch, g, c, 0, raw_abs_err)
+    r["errors"] = dict(raw_map_rel_err=map_err, **r["errors"])
+    return dict(r, raw_map_abs_err=raw_abs_err, layers=layers)
+
+
+def within_ref_limits(r, limits) -> bool:
+    """A reading (``detection_errors`` with its raw map error) within a row
+    of REF_LIMITS: classes equal, or flipped at ties only where the row
+    allows it; the overlap above its floor, every error below its limit."""
+    got = r["errors"]
+    return (r["cls_equal"] or (limits["class_flip_at_tie"] and r["ties_only"])) \
+        and got["overlap"] > limits["overlap"] \
+        and all(got[k] < limits[k] for k in got if k != "overlap")
+
+
+def detection_errors(torch, g, c, i, raw_abs_err) -> dict:
+    """Image ``i`` of the card's PredictOutput ``g`` against the CPU's
+    ``c``, detections matched by anchor: the detection counts, the class
+    flips with the CPU's margin between its two best logits (ties_only: each
+    within twice ``raw_abs_err``, the raw maps' largest difference) and the
+    errors of REF_LIMITS but the raw map's."""
+    ga, ca = g.anchor_idx[i][g.det.valid[i]].cpu(), c.anchor_idx[i][c.det.valid[i]]
     common = np.intersect1d(ga.numpy(), ca.numpy())
     if len(common) == 0:
-        raise AssertionError("card and CPU share no detection on the reference image")
-    gi = {int(a): i for i, a in enumerate(ga)}
-    ci = {int(a): i for i, a in enumerate(ca)}
+        raise AssertionError(f"card and CPU share no detection on image {i}")
+    gi = {int(a): k for k, a in enumerate(ga)}
+    ci = {int(a): k for k, a in enumerate(ca)}
     rows_g = torch.tensor([gi[int(a)] for a in common])
     rows_c = torch.tensor([ci[int(a)] for a in common])
-    box_err = float((g.det.boxes[0, rows_g].cpu() - c.det.boxes[0, rows_c]).abs().max())
-    flipped = g.det.cls[0, rows_g].cpu() != c.det.cls[0, rows_c]
-    top2 = c.logits[0, rows_c][flipped].topk(2, dim=-1).values
+    box_err = float((g.det.boxes[i, rows_g].cpu() - c.det.boxes[i, rows_c]).abs().max())
+    flipped = g.det.cls[i, rows_g].cpu() != c.det.cls[i, rows_c]
+    top2 = c.logits[i, rows_c][flipped].topk(2, dim=-1).values
     flip_margins = (top2[:, 0] - top2[:, 1]).tolist()
-    raw_abs_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(raw_g, raw_c))
-    roi_err, exact_err = (float((a[0, rows_g].cpu() - b[0, rows_c]).abs().max() / b.abs().max())
+    roi_err, exact_err = (float((a[i, rows_g].cpu() - b[i, rows_c]).abs().max()
+                                / b[i].abs().max())
                           for a, b in ((g.roi_feats, c.roi_feats), (g.exact_feats, c.exact_feats)))
     return dict(detections_card=len(ga), detections_cpu=len(ca),
                 cls_equal=not bool(flipped.any()), class_flip_margins=flip_margins,
                 ties_only=all(m <= 2 * raw_abs_err for m in flip_margins),
-                raw_map_abs_err=raw_abs_err,
-                errors=dict(raw_map_rel_err=map_err, overlap=len(common) / len(ca),
-                            box_abs_err_px=box_err, roi_feat_rel_err=roi_err,
-                            exact_feat_rel_err=exact_err),
-                layers=layers)
+                errors=dict(overlap=len(common) / len(ca), box_abs_err_px=box_err,
+                            roi_feat_rel_err=roi_err, exact_feat_rel_err=exact_err))
 
 
 def phase_reference(torch, det, images, label="reference", model=MODEL):
@@ -932,10 +1305,7 @@ def phase_reference(torch, det, images, label="reference", model=MODEL):
     worst = sorted(r["layers"].items(), key=lambda kv: -kv[1])[:5]
     emit(label, model=model, **{k: v for k, v in r.items() if k not in ("errors", "layers")},
          **got, limits=limits, layer_rel_err_worst=dict(worst), layer_rel_tol=LAYER_REL_TOL)
-    ok = (r["cls_equal"] or (limits["class_flip_at_tie"] and r["ties_only"])) \
-        and got["overlap"] > limits["overlap"] \
-        and all(got[k] < limits[k] for k in got if k != "overlap")
-    if not ok or any(e > LAYER_REL_TOL for e in r["layers"].values()):
+    if not within_ref_limits(r, limits) or any(e > LAYER_REL_TOL for e in r["layers"].values()):
         raise AssertionError(f"{model}: card and CPU disagree on the reference image")
 
 
@@ -1241,8 +1611,10 @@ def stem_entry(torch, S, det, images, launches):
                              "wrapper, which folds BN and casts the weights on every call")
 
 
-def phase_kernels(torch, det, det16, dist_method, images, launches, launches16, launches_eul,
-                  eul_parts, launches_sweeps, cluster_banks):
+def phase_kernels(torch, det, det16, dist_method, images, total, eul_parts, cluster_banks):
+    """Each kernel against its plain version on the main paths' tensors;
+    ``total``: the launches of every main path's run (e2e, e2e_eul,
+    e2e_sweeps, e2e_serve, e2e_bf16)."""
     from ood_in_object_detection_torch.ood.pipeline import distance_features
     from ood_in_object_detection_torch.ops import nms as N
     from ood_in_object_detection_torch.ops import roi_align as R
@@ -1250,8 +1622,6 @@ def phase_kernels(torch, det, det16, dist_method, images, launches, launches16, 
 
     shifted, valid = main_candidates(torch, det, images)
     out = det.predict(images, conf_thres=CONF)
-    total = {k: launches[k] + launches16[k] + launches_eul[k] + launches_sweeps[k]
-             for k in launches}
     entries = []
 
     entries.append(nms_entry(torch, N, shifted, valid, total["greedy_keep"]))
@@ -1650,6 +2020,7 @@ def main() -> int:
     det, methods, ind, ood, launches, step_ms = phase_e2e(torch)
     launches_eul, eul_parts = phase_e2e_eul(torch, det, methods["Cosine_cl_stride"], ood)
     launches_sweeps, cluster_banks = phase_e2e_sweeps(torch, det)
+    launches_serve = phase_e2e_serve(torch, det, ind, ood, env)
     det16, launches16, step16_ms = phase_e2e_bf16(torch, det, methods, ind, ood)
     images = ood[0]["images"]
     phase_reference(torch, det, images)
@@ -1657,9 +2028,10 @@ def main() -> int:
     phase_profile(torch, det16, images, step16_ms, label="profile_bf16")
     with torch.no_grad():
         entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
-                                launches, launches16, launches_eul, eul_parts,
-                                launches_sweeps, cluster_banks)
+                                _added(launches, launches16, launches_eul, launches_sweeps,
+                                       launches_serve), eul_parts, cluster_banks)
     entries += phase_e2e_families(torch)
+    entries += phase_xscale_stem(torch, images)
     entries += phase_stem_parts(torch)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries, "card": env["nvidia_smi"]}), flush=True)

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from ..core.checkpoint import load_checkpoint
 from ..core.config import CUSTOM_HYP, hyperparams_to_dict
 from ..data import DetectionDataset, PaddedBatcher
 from ..engine import Detector
@@ -49,8 +50,7 @@ log = logging.getLogger("ood_eval")
 # flag -> the ROADMAP.md item that will port it
 UNPORTED_FLAGS = {
     "data_parallel": "A12 (multi-GPU)",
-    "export_bundle": "A11 (serving/export)",
-    "model_path": "A11 (checkpoints)",
+    "export_bundle": "A11c (a serving bundle: K1-K4 as torch.library ops for torch.export)",
     "compile_cache": "none: the eager port compiles nothing ahead of time",
 }
 
@@ -65,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="l", choices=["n", "s", "m", "b", "l", "x", "t", "c", "e"])
     p.add_argument("--model_version", default="yolov8",
                    choices=["yolov8", "yolov9", "yolov10", "yolo11", "yolo12"])
-    p.add_argument("--model_path", default="", help="checkpoint dir (not ported)")
+    p.add_argument("--model_path", default="",
+                   help="checkpoint dir (core/checkpoint.py): its meta.json names the model")
     p.add_argument("--device", default="0",
                    help="CUDA device index, or 'cpu' for the plain PyTorch versions")
     p.add_argument("--batch_size", type=int, default=16)
@@ -146,9 +147,12 @@ def torch_device(spec: str) -> torch.device:
 
 def cache_paths(args, method) -> Dict[str, Path]:
     """Cache keys of the reference (ood_evaluation.py:291-336), under a
-    'torch_' prefix so the two packages never read each other's files."""
+    'torch_' prefix so the two packages never read each other's files; a
+    checkpoint's directory stem stands for the model, as in the JAX CLI."""
+    ckpt_name = (Path(args.model_path).stem if getattr(args, "model_path", "")
+                 else f"{args.model_version}{args.model}")
     internal = "logits" if not method.is_distance_method else "roi_aligned_ftmaps"
-    base = f"torch_{internal}_conf{args.conf_thr_train}_{args.model_version}{args.model}"
+    base = f"torch_{internal}_conf{args.conf_thr_train}_{ckpt_name}"
     if method.is_distance_method:
         base += f"_{args.ind_info_creation_option}"
     C.STORAGE_PATH.mkdir(parents=True, exist_ok=True)
@@ -160,11 +164,19 @@ def cache_paths(args, method) -> Dict[str, Path]:
 
 
 def load_detector(args, default_nc: int = 20) -> Detector:
+    """The detector of ``--model_path`` (its meta.json's model, the class
+    count from meta's ``nc``, then ``train_args.nc``, then the task's), or
+    else a seeded random one of ``--model_version``/``--model``."""
     nc = OWOD_TASK_NC.get(args.owod_task_ind, 0) or default_nc
-    name = resolve_model_name(args.model_version, args.model)
     dtype = torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
-    return Detector.create(name, nc=nc, img_size=args.img_size, device=torch_device(args.device),
-                           dtype=dtype)
+    device = torch_device(args.device)
+    if getattr(args, "model_path", ""):
+        sd, meta = load_checkpoint(args.model_path)
+        ckpt_nc = meta.get("nc") or meta.get("train_args", {}).get("nc") or nc
+        return Detector.create(meta["model_name"], nc=ckpt_nc, img_size=args.img_size,
+                               device=device, dtype=dtype, state_dict=sd)
+    name = resolve_model_name(args.model_version, args.model)
+    return Detector.create(name, nc=nc, img_size=args.img_size, device=device, dtype=dtype)
 
 
 def load_dataset(args, path_or_name: str, split: str, owod_task: str) -> DetectionDataset:

@@ -35,8 +35,9 @@
 // - B, the folded conv2 weight in bf16, is resident in shared memory
 //   (147 KB at yolov8l) in mma fragment order, so each lane reads one 8-byte
 //   word per n-tile and k-step. The block is persistent: it loads B once and
-//   walks a stride of tiles; where C2's weights do not fit (C1 80, C2 160),
-//   C2 is cut into slices, one per block.
+//   walks a stride of tiles; where C2's weights do not fit (C1 80, C2 160;
+//   C1 96, C2 192 in three slices of 64), C2 is cut into slices, one per
+//   block.
 // - 16 warps in two groups of 8 that split K (taps 0-4 and 4-8). In a group
 //   a warp owns 2 m-tiles x up to 5 n-tiles (40 accumulators) and loads the
 //   next k-step's fragments before the current products. That keeps the
@@ -57,7 +58,8 @@
 // f32 (fused_stem_f32_kernel): TF32 is off by contract, so CUDA cores.
 // One block of C2 threads per (image, 8x8 output tile); two blocks fit on
 // an SM at yolov8l's widths (~102 KB of shared memory each), so one block's
-// patch copy, conv1 and epilogue overlap the other's conv2.
+// patch copy, conv1 and epilogue overlap the other's conv2. At C1 96, C2
+// 192 (yolo11x, yolo12x) a block takes ~150 KB and runs alone on its SM.
 // - conv2 is a register-tiled implicit GEMM: M = the tile's 64 pixels,
 //   N = C2, K = 9 C1. A thread holds 8 pixels (one column of the tile) x 8
 //   output channels, 64 accumulators. The conv1 tile is stored cell-major
@@ -94,7 +96,9 @@ constexpr int kTile = 8;                // output pixels per tile side
 constexpr int kH1 = 2 * kTile + 1;      // conv1 cells per tile side (17)
 constexpr int kCells = kH1 * kH1;       // conv1 cells per tile (289)
 constexpr int kImg = 4 * kTile + 3;     // image cells per tile side (35)
-constexpr int kMaxC2 = 160;
+// the widest stem K4 takes (yolo11x, yolo12x): C1 96, C2 192, multiples of 8
+constexpr int kMaxC1 = 96;
+constexpr int kMaxC2 = 192;
 
 // ---- bf16: both convolutions on tensor cores ------------------------------
 //
@@ -120,8 +124,14 @@ constexpr int kPatchPlane = kImg * kPatchW;
 constexpr int kPatchElems = 3 * kPatchPlane;   // bf16 per patch buffer
 constexpr int kStagePitch = kTile * kTile + 8;  // bf16 per channel of the output stage
 constexpr int kM1Tiles = (kCells + 15) / 16;    // 19 conv1 m-tiles
-constexpr int kMaxNt = (20 + kNq - 1) / kNq;  // conv2 n-tiles per warp (C2 / 8 <= 20)
-constexpr int kMaxNt1 = 10;               // conv1 n-tiles (C1p / 8 <= 10)
+// The register tiles of the two specializations of the kernel (template
+// parameters kNt, kNt1): conv2 n-tiles per warp and conv1 n-tiles (C1p / 8).
+// Every stem up to C1 80 runs the first, the one of yolov8l (C1 64, C2 128)
+// included; C1 88 and 96 (yolo11x, yolo12x) the second, whose C2 is cut
+// into more slices (the launcher's search) so that a warp's share of a
+// slice fits 3 n-tiles.
+constexpr int kNtNarrow = (20 + kNq - 1) / kNq, kNt1Narrow = 10;  // C1p <= 80, C2 / 8 <= 20
+constexpr int kNtWide = 3, kNt1Wide = kMaxC1 / 8;                  // C1p 96
 
 // SiLU in f32 through the fast exponential and division (a few ulp of f32,
 // far below the bf16 rounding that follows)
@@ -174,22 +184,22 @@ struct Stem16Args {
 };
 
 // conv2 partial sums the two groups exchange: each thread hands its peer
-// one m-tile's kMaxNt n-tiles x 4
-constexpr int kRedFloats = 2 * kMaxNt * 4 * 32 * kGroup;
+// one m-tile's kNt n-tiles x 4
+__host__ __device__ constexpr int red_floats(int nt) { return 2 * nt * 4 * 32 * kGroup; }
 
 // Shared memory of one block, in bytes: the block's slice of w2p, w1p, the
 // biases, two image patches and the conv1 tile (the exchanged partial sums
 // and the output stage, side by side, reuse it)
-__host__ __device__ inline size_t stem16_h1_bytes(int c1p, int nb) {
+__host__ __device__ inline size_t stem16_h1_bytes(int c1p, int nb, int nt) {
   const size_t h1 = static_cast<size_t>(kSlots) * (2 * c1p + 16);
   const size_t red_stage =
-      static_cast<size_t>(kRedFloats) * 4 + static_cast<size_t>(nb) * kStagePitch * 2;
+      static_cast<size_t>(red_floats(nt)) * 4 + static_cast<size_t>(nb) * kStagePitch * 2;
   return h1 > red_stage ? h1 : red_stage;
 }
-__host__ __device__ inline size_t stem16_smem_bytes(int c1p, int nb) {
+__host__ __device__ inline size_t stem16_smem_bytes(int c1p, int nb, int nt) {
   return static_cast<size_t>(nb) * 9 * c1p * 2 + static_cast<size_t>(c1p) * 64 +
          static_cast<size_t>(c1p) * 4 + static_cast<size_t>(nb) * 4 +
-         2 * static_cast<size_t>(kPatchElems) * 2 + stem16_h1_bytes(c1p, nb);
+         2 * static_cast<size_t>(kPatchElems) * 2 + stem16_h1_bytes(c1p, nb, nt);
 }
 
 // Stage the 35x35x3 image patch of an output tile (image rows 4 oy0 - 3 ..,
@@ -217,7 +227,9 @@ __device__ __forceinline__ void load_patch(const Stem16Args& a, int tile, __nv_b
 //   conv2: M = 64 pixels, N = the block's C2 slice, K = 9 C1p; A read from
 //          the conv1 tile with ldmatrix, one row address per lane, so the
 //          stride-2 gather costs nothing
+template <int kNt, int kNt1>
 __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Args a) {
+  constexpr int kRedFloats = red_floats(kNt);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int c1p = a.C1p, ks2 = c1p / 16, nt1 = c1p / 8;
   const int nb = a.C2 / a.nsplit, ntb = nb / 8;
@@ -309,13 +321,13 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
           afr[j / 4][((j >> 1) & 1) * 2 + hr] = lo | (hi << 16);
         }
       }
-      float acc1[kMaxNt1][4];
+      float acc1[kNt1][4];
 #pragma unroll
-      for (int n = 0; n < kMaxNt1; ++n) acc1[n][0] = acc1[n][1] = acc1[n][2] = acc1[n][3] = 0.0f;
+      for (int n = 0; n < kNt1; ++n) acc1[n][0] = acc1[n][1] = acc1[n][2] = acc1[n][3] = 0.0f;
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-        for (int n = 0; n < kMaxNt1; ++n)
+        for (int n = 0; n < kNt1; ++n)
           if (n < nt1) {
             const uint2 bb = w1f[(n * 2 + ks) * 32 + lane];
             mma16816(acc1[n], afr[ks], bb.x, bb.y);
@@ -328,7 +340,7 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
         const float in = ry0 + r >= 0 && ry0 + r < H2 && rx0 + q >= 0 && rx0 + q < W2;
         unsigned char* dst = h1 + (r * kSlotRow + (q & 1) * (kTile + 1) + (q >> 1)) * p1;
 #pragma unroll
-        for (int n = 0; n < kMaxNt1; ++n)
+        for (int n = 0; n < kNt1; ++n)
           if (n < nt1) {
             const int ch = n * 8 + 2 * t;
             const float v0 = in * silu_fast(acc1[n][2 * hr] + b1s[ch]);
@@ -344,37 +356,37 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
 
     // conv2: 9 taps x C1p/16 k-steps; the next step's fragments are loaded
     // before this step's products
-    float acc[2][kMaxNt][4];
+    float acc[2][kNt][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < kMaxNt; ++j)
+      for (int j = 0; j < kNt; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
     const unsigned h1a = smem_addr(h1);
     // k-step kk = tap C1p/16 + ks; B of n-tile nq + kNq j at
     // w2f[((nq + kNq j) 9 C1p/16 + kk) 32 + lane]
     const uint2* wb = w2f + nq * nk * 32 + lane;
-    auto load = [&](int kk, int tap, int ks, unsigned (&af)[2][4], uint2 (&bf)[kMaxNt]) {
+    auto load = [&](int kk, int tap, int ks, unsigned (&af)[2][4], uint2 (&bf)[kNt]) {
       const int dy = tap / 3, dx = tap - 3 * dy;
       const int toff = dy * kSlotRow + (dx & 1) * (kTile + 1) + (dx >> 1);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
         ldmatrix_x4(af[mi], h1a + (slot_base[mi] + toff) * p1 + ks * 32 + kofs_bytes);
 #pragma unroll
-      for (int j = 0; j < kMaxNt; ++j)
+      for (int j = 0; j < kNt; ++j)
         if (j < nt_count) bf[j] = wb[(kNq * j * nk + kk) * 32];
     };
-    auto mma_all = [&](const unsigned (&af)[2][4], const uint2 (&bf)[kMaxNt]) {
+    auto mma_all = [&](const unsigned (&af)[2][4], const uint2 (&bf)[kNt]) {
 #pragma unroll
-      for (int j = 0; j < kMaxNt; ++j)
+      for (int j = 0; j < kNt; ++j)
         if (j < nt_count) {
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi) mma16816(acc[mi][j], af[mi], bf[j].x, bf[j].y);
         }
     };
     unsigned a0[2][4], a1[2][4];
-    uint2 bq0[kMaxNt], bq1[kMaxNt];
+    uint2 bq0[kNt], bq1[kNt];
     int tap = k_begin / ks2, ks = k_begin - tap * ks2;  // the next k-step to load
     auto next = [&]() {
       if (++ks == ks2) {
@@ -404,19 +416,19 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
     // Then bias + SiLU -> stage[n][pixel] (bf16).
     __syncthreads();  // every warp is done with h1
 #pragma unroll
-    for (int j = 0; j < kMaxNt; ++j)
+    for (int j = 0; j < kNt; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        red[((group * kMaxNt + j) * 4 + e) * 32 * kGroup + gt] =
+        red[((group * kNt + j) * 4 + e) * 32 * kGroup + gt] =
             group ? acc[0][j][e] : acc[1][j][e];
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kMaxNt; ++j)
+    for (int j = 0; j < kNt; ++j)
       if (j < nt_count) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float sum = (group ? acc[1][j][e] : acc[0][j][e]) +
-                            red[(((1 - group) * kMaxNt + j) * 4 + e) * 32 * kGroup + gt];
+                            red[(((1 - group) * kNt + j) * 4 + e) * 32 * kGroup + gt];
           const int m = (2 * mp + group) * 16 + g + 8 * (e >> 1);
           const int n = (nq + kNq * j) * 8 + 2 * t + (e & 1);
           stage[n * kStagePitch + m] = __float2bfloat16_rn(silu_fast(sum + b2s[n]));
@@ -440,9 +452,11 @@ __global__ void __launch_bounds__(kThreads16, 1) fused_stem_bf16_kernel(Stem16Ar
   }
 }
 
+template <int kNt, int kNt1>
 int launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
                 int batch, int H, int W, int C1, int C2, void* out, cudaStream_t s) {
   const int c1p = (C1 + 15) / 16 * 16;
+  if (c1p > 8 * kNt1) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w1) % 16 ||
       reinterpret_cast<uintptr_t>(w2) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
@@ -452,15 +466,19 @@ int launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, 
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the fewest slices of C2 whose weights fit in shared memory
+  // the fewest slices of C2 whose weights fit in shared memory and whose
+  // n-tiles fit a warp's register tile (kNt n-tiles of every kNq-th)
+  auto fits = [&](int ns) {
+    const int ntb = C2 / 8 / ns;
+    return (C2 / 8) % ns == 0 && (ntb + kNq - 1) / kNq <= kNt &&
+           stem16_smem_bytes(c1p, C2 / ns, kNt) <= static_cast<size_t>(smem_max);
+  };
   int nsplit = 1;
-  while (nsplit <= C2 / 8 &&
-         ((C2 / 8) % nsplit || stem16_smem_bytes(c1p, C2 / nsplit) > static_cast<size_t>(smem_max)))
-    ++nsplit;
+  while (nsplit <= C2 / 8 && !fits(nsplit)) ++nsplit;
   if (nsplit > C2 / 8) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = stem16_smem_bytes(c1p, C2 / nsplit);
-  err = cudaFuncSetAttribute(fused_stem_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  const size_t smem = stem16_smem_bytes(c1p, C2 / nsplit, kNt);
+  err = cudaFuncSetAttribute(fused_stem_bf16_kernel<kNt, kNt1>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   Stem16Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -478,7 +496,7 @@ int launch_bf16(const void* x, const void* w1, const float* b1, const void* w2, 
   a.tiles_per_image = ((H / 4 + kTile - 1) / kTile) * a.tiles_x;
   a.tiles = a.tiles_per_image * batch;
   const int per_split = std::max(1, std::min(a.tiles, sms / nsplit));
-  fused_stem_bf16_kernel<<<per_split * nsplit, kThreads16, smem, s>>>(a);
+  fused_stem_bf16_kernel<kNt, kNt1><<<per_split * nsplit, kThreads16, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -518,8 +536,12 @@ __host__ __device__ inline size_t stem32_smem_bytes(int c1, int c2) {
 }
 
 // block = C2 threads, one (image, 8x8 output tile); thread t: pixel column
-// g = t % 8, output channels 8 (t / 8) .. + 7
-__global__ void __launch_bounds__(kMaxC2, 2) fused_stem_f32_kernel(
+// g = t % 8, output channels 8 (t / 8) .. + 7. Two specializations that
+// differ in their launch bounds alone: C2 <= 160 (two blocks an SM, the
+// stem of every model up to C2 160) and C2 <= 192 (yolo11x, yolo12x: 192
+// threads, one block an SM, ~150 KB of shared memory)
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) fused_stem_f32_kernel(
     const float* __restrict__ x, const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ w2p, const float* __restrict__ b2, int H, int W, int C1, int C2,
     int tiles_x, float* __restrict__ out) {
@@ -673,20 +695,23 @@ __global__ void __launch_bounds__(kMaxC2, 2) fused_stem_f32_kernel(
   }
 }
 
+template <int kMaxThreads, int kMinBlocks>
 int launch_f32(const void* x, const float* w1, const float* b1, const float* w2p, const float* b2,
                int batch, int H, int W, int C1, int C2, void* out, cudaStream_t s) {
+  if (C2 > kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w1) % 16 ||
       reinterpret_cast<uintptr_t>(w2p) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const int tiles_y = (H / 4 + kTile - 1) / kTile, tiles_x = (W / 4 + kTile - 1) / kTile;
   const size_t smem = stem32_smem_bytes(C1, C2);
-  cudaError_t err = cudaFuncSetAttribute(fused_stem_f32_kernel,
+  cudaError_t err = cudaFuncSetAttribute(fused_stem_f32_kernel<kMaxThreads, kMinBlocks>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(tiles_y * tiles_x), static_cast<unsigned>(batch));
-  fused_stem_f32_kernel<<<grid, C2, smem, s>>>(static_cast<const float*>(x), w1, b1, w2p, b2, H,
-                                               W, C1, C2, tiles_x, static_cast<float*>(out));
+  fused_stem_f32_kernel<kMaxThreads, kMinBlocks><<<grid, C2, smem, s>>>(
+      static_cast<const float*>(x), w1, b1, w2p, b2, H, W, C1, C2, tiles_x,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -699,13 +724,18 @@ extern "C" int fused_stem_launch(const void* x, const void* w1, const float* b1,
                                  const void* w2, const float* b2, int batch, int H, int W,
                                  int C1, int C2, int bf16, void* out, void* stream) {
   if (batch <= 0 || H <= 0 || W <= 0) return 0;
-  if (H % 4 || W % 4 || C1 <= 0 || C1 % 8 || C1 > (bf16 ? 80 : 128) || C2 <= 0 || C2 % 8 ||
-      C2 > kMaxC2 || batch > 65535)
+  if (H % 4 || W % 4 || C1 <= 0 || C1 % 8 || C1 > kMaxC1 || C2 <= 0 || C2 % 8 || C2 > kMaxC2 ||
+      batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_bf16(x, w1, b1, w2, b2, batch, H, W, C1, C2, out, s)
-              : launch_f32(x, static_cast<const float*>(w1), b1,
-                              static_cast<const float*>(w2), b2, batch, H, W, C1, C2, out, s);
+  const float* w1f = static_cast<const float*>(w1);
+  const float* w2f = static_cast<const float*>(w2);
+  if (bf16)
+    return (C1 + 15) / 16 * 16 <= 8 * kNt1Narrow
+               ? launch_bf16<kNtNarrow, kNt1Narrow>(x, w1, b1, w2, b2, batch, H, W, C1, C2, out, s)
+               : launch_bf16<kNtWide, kNt1Wide>(x, w1, b1, w2, b2, batch, H, W, C1, C2, out, s);
+  return C2 <= 160 ? launch_f32<160, 2>(x, w1f, b1, w2f, b2, batch, H, W, C1, C2, out, s)
+                   : launch_f32<kMaxC2, 1>(x, w1f, b1, w2f, b2, batch, H, W, C1, C2, out, s);
 }
 
 extern "C" const char* fused_stem_error_string(int code) {

@@ -13,7 +13,7 @@ logits leave in f32.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,19 +50,26 @@ class Detector:
     @classmethod
     def create(cls, name: str, nc: int = 80, img_size: int = 640, device="cuda",
                generator: Optional[torch.Generator] = None,
-               dtype: torch.dtype = torch.float32) -> "Detector":
-        """A seeded random init from ``generator`` (seed 0 by default), made
-        on the CPU and moved to ``device``: the card unless the caller passes
-        ``device="cpu"`` (plain PyTorch versions of the kernels). ``dtype``
-        is the compute dtype (engine.py:90-91 of the JAX package); the
-        parameters stay f32. Load trained or JAX-exported weights with
-        utils/weights.py:load_jax_variables."""
+               dtype: torch.dtype = torch.float32,
+               state_dict: Optional[Mapping] = None) -> "Detector":
+        """A seeded random init from ``generator`` (seed 0 by default), or
+        the weights of ``state_dict`` (ultralytics names, loaded strictly: a
+        checkpoint's, core/checkpoint.py:load_checkpoint, as the JAX
+        package's ``create(..., variables=)``), made on the CPU and moved to
+        ``device``: the card unless the caller passes ``device="cpu"``
+        (plain PyTorch versions of the kernels). ``dtype`` is the compute
+        dtype (engine.py:90-91 of the JAX package); the parameters stay
+        f32."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Detector.create: CUDA is not available; pass device=\"cpu\" "
                                "to run the plain PyTorch versions of the kernels on the CPU")
         model = build_model(name, nc=nc, dtype=dtype)
-        init_weights(model, generator or torch.Generator().manual_seed(0))
+        if state_dict is None:
+            init_weights(model, generator or torch.Generator().manual_seed(0))
+        else:
+            model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()},
+                                  strict=True)
         return cls(model=model.to(device).eval(), img_size=img_size)
 
     @property

@@ -11,7 +11,7 @@ the one2many maps, as the JAX model does (yolo.py:436-452).
 At inference the first two k3/s2 Conv blocks run as one fused stem
 (ops/stem.py:fused_stem, kernel K4 on the card) on layers 0 and 1's own
 parameters, as the JAX model runs its phase-folded stem (yolo.py:398-431),
-where the spec allows it and K4 takes the stem's widths
+wherever the spec allows it, as the JAX model's gate does
 (:attr:`YOLODetector.stem_route`); ``folded_stem=False``, and every
 training-mode forward, keep the two Conv modules.
 """
@@ -24,7 +24,7 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
-from ..ops.stem import fused_stem, k4_takes
+from ..ops.stem import fused_stem
 from . import layers as L
 from .head import Detect
 
@@ -445,7 +445,7 @@ class YOLODetector(nn.Module):
             ch.append(c2)
         self.model = nn.ModuleList(layers)
         self.stem_widths = tuple(ch[:2])
-        self._stem_foldable = self._spec_folds_stem() and k4_takes(*self.stem_widths)
+        self._stem_foldable = self._spec_folds_stem()
 
     def _spec_folds_stem(self) -> bool:
         """The JAX model's spec gate (yolo.py:398-410): layers 0 and 1 are
@@ -463,10 +463,10 @@ class YOLODetector(nn.Module):
     @property
     def stem_route(self) -> str:
         """"fused" (ops/stem.py:fused_stem, K4 on the card) or "conv" (the
-        two Conv modules), decided from the spec and the stem's widths
-        alone, so the CPU and the card take the same route: yolo11x and
-        yolo12x (C1 96, C2 192) are past K4's range, and yolov9e's later
-        layers read layer 0."""
+        two Conv modules), decided from the spec alone, as the JAX model's
+        gate (yolo.py:398-410), so the CPU and the card take the same route:
+        every scale folds its stem but yolov9e, whose later layers read
+        layer 0."""
         return "fused" if self.folded_stem and self._stem_foldable else "conv"
 
     def _can_fold_stem(self, x: torch.Tensor) -> bool:

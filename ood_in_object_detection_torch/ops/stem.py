@@ -35,10 +35,10 @@ import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-3
-# the widths K4 takes, multiples of 8: every scale's stem but yolo11x's and
-# yolo12x's (C1 96, C2 192), which run as two Conv modules (ROADMAP B-R10)
-K4_C1_RANGE = (16, 80)
-K4_C2_RANGE = (32, 160)
+# the widths K4 takes, multiples of 8: every scale's stem, up to yolo11x's
+# and yolo12x's C1 96, C2 192 (csrc/fused_stem.cu's second specialization)
+K4_C1_RANGE = (16, 96)
+K4_C2_RANGE = (32, 192)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -229,8 +229,10 @@ def k4_operands(w1, bn1, w2, bn2, dtype: torch.dtype):
 
 
 def k4_takes(c1: int, c2: int) -> bool:
-    """Whether K4 takes a stem of these widths; the model's stem gate
-    (models/yolo.py:YOLODetector.stem_route) asks this on every device."""
+    """Whether K4 takes a stem of these widths (:func:`check_k4_shapes` on
+    the card). The model's stem gate does not ask it: the fold is a choice
+    of the spec, as in the JAX model, and a CUDA stem past this range raises
+    rather than run another route."""
     (lo, hi), (lo2, hi2) = K4_C1_RANGE, K4_C2_RANGE
     return lo <= c1 <= hi and lo2 <= c2 <= hi2 and c1 % 8 == 0 and c2 % 8 == 0
 

@@ -55,7 +55,7 @@ def instrumented_source(max_blocks: int) -> str:
                                 + "\n  // conv1 + BN + SiLU -> h1")
         else:
             body = body.replace(anchor, anchor + probe)
-    decl = head.rindex("__global__")
+    decl = head.rindex("template <")  # the kernel's template head
     head = head[:decl] + f"__device__ long long g_prof[{max_blocks} * 5];\n" + head[decl:]
     return head + body + (
         '\nextern "C" int profile_read(long long* host, int n) {\n'

@@ -4,13 +4,17 @@ The JAX package's ``utils/weight_import.py:export_state_dict(variables,
 detect_layer_idx)`` (the port model's ``detect_layer_idx``: 22 for yolov8)
 writes an ultralytics-named, torch-layout numpy state_dict; this port
 names its modules the same way, so that dict loads with ``strict=True``
-and no renaming table.
+and no renaming table. An ultralytics ``.pt`` is read by
+:func:`state_dict_from_torch_file` and loaded by
+:func:`load_torch_state_dict`, the port's counterparts of the JAX
+package's ``state_dict_from_torch_file`` and ``import_state_dict``.
 """
 
 from __future__ import annotations
 
+import logging
 import re
-from typing import Dict
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -27,6 +31,59 @@ def load_jax_variables(model: nn.Module, state_dict: Dict[str, np.ndarray]) -> n
     sd = {k: torch.tensor(np.asarray(v)) for k, v in state_dict.items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def class_count(state_dict: Mapping) -> int:
+    """The class count of a detector's state_dict: the length of the class
+    tower's last bias, ``cv3.0.2.bias`` (the JAX predict CLI's reading,
+    cli/predict.py:155-157)."""
+    keys = sorted(k for k in state_dict if k.endswith("cv3.0.2.bias"))
+    if not keys:
+        raise KeyError("no detect head class bias (*cv3.0.2.bias) in the state_dict")
+    return int(state_dict[keys[0]].shape[0])
+
+
+def state_dict_from_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """A flat state_dict (tensors as f32, on the CPU) from a ``.pt`` file:
+    its ``ema``, else its ``model``, else the file itself as a state_dict,
+    each a module or a state_dict (the JAX package's
+    utils/weight_import.py:199-210). An ultralytics checkpoint pickles its
+    modules, so the file is unpickled whole (``weights_only=False``): read
+    only files you trust, and one that pickles ultralytics modules needs
+    that package importable."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    model = obj
+    if isinstance(obj, dict):
+        model = obj.get("ema") or obj.get("model") or obj
+    sd = model.state_dict() if hasattr(model, "state_dict") else model
+    return {k: v.float() for k, v in sd.items()}
+
+
+def load_torch_state_dict(model: nn.Module, state_dict: Mapping,
+                          strict: bool = False) -> List[str]:
+    """Load the tensors (torch or numpy) of ``state_dict`` whose names the
+    model has; -> the model's keys that ``state_dict`` lacks, which keep
+    their values (logged), as the JAX package's ``import_state_dict``
+    returns them. A shape that differs raises; with ``strict`` a missing
+    key raises."""
+    own = model.state_dict()
+    missing = [k for k in own if k not in state_dict]
+    if strict and missing:
+        raise KeyError(f"{len(missing)} torch keys not found, e.g. {missing[:5]}")
+    with torch.no_grad():
+        for k, dst in own.items():
+            if k in missing:
+                continue
+            v = state_dict[k]
+            src = torch.as_tensor(np.asarray(v)) if isinstance(v, np.ndarray) else v
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"shape mismatch at {k}: file {tuple(src.shape)} vs model "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+    if missing:
+        logging.getLogger(__name__).warning("%d torch keys not matched (first: %s)",
+                                            len(missing), missing[:3])
+    return missing
 
 
 def numpy_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:

@@ -235,9 +235,10 @@ STEM_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -5, 2.0 ** -7)}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("hw", [(96, 96), (640, 640), (672, 640)], ids=["96", "640", "672x640"])
-@pytest.mark.parametrize("c1", [16, 32, 48, 64, 80])
+@pytest.mark.parametrize("c1", [16, 32, 48, 64, 80, 96])
 def test_fused_stem_kernel_matches_plain(dev, c1, hw, dtype):
-    """Every YOLOv8 stem width (C1 = 16 .. 80, C2 = 2 C1), f32 and bf16."""
+    """Every stem width of the zoo (C1 = 16 .. 96, C2 = 2 C1; 96 is yolo11x's
+    and yolo12x's, K4's second specialization), f32 and bf16."""
     params = stem_params(c1 + hw[0], c1, 2 * c1, dev)
     x = torch.tensor(np.random.default_rng(hw[1]).uniform(0, 1, (2, 3, *hw)),
                      dtype=torch.float32, device=dev)
@@ -271,13 +272,14 @@ def test_fused_stem_kernel_corner_impulse(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("c1", [64, 80])
+@pytest.mark.parametrize("c1", [64, 80, 96])
 @pytest.mark.parametrize("case", ["partial_tiles", "corner_impulse"])
 def test_fused_stem_kernel_widest(dev, case, c1, dtype):
-    """yolov8l's and the widest stem (C1 80, C2 160: the largest chunks of
-    streamed weights in f32, the sliced C2 in bf16) on a batch of 3 whose
-    tiles are partial (H/4 = 25, W/4 = 17: 12 tiles per image, 36 in all),
-    and on the corner impulse."""
+    """yolov8l's stem, C1 80 / C2 160 (the widest of the first
+    specialization: C2 in two slices in bf16) and yolo11x's C1 96 / C2 192
+    (the second: 192 threads in f32, three slices of C2 in bf16) on a batch
+    of 3 whose tiles are partial (H/4 = 25, W/4 = 17: 12 tiles per image, 36
+    in all), and on the corner impulse."""
     params = stem_params(c1 + 7, c1, 2 * c1, dev)
     if case == "partial_tiles":
         x = torch.tensor(np.random.default_rng(c1).uniform(0, 1, (3, 3, 100, 68)),
@@ -344,10 +346,11 @@ def family_model(name, nc=2, img=64):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["yolov10n", "yolo12l"])
+@pytest.mark.parametrize("name", ["yolov10n", "yolo12l", "yolo11x"])
 def test_fused_stem_kernel_on_family_stem(dev, name, dtype):
-    """K4 on a yolov10n (C1 16, C2 32) and a yolo12l (C1 64, C2 128) stem,
-    calibrated, at 640 px, against its plain version and its contract."""
+    """K4 on a yolov10n (C1 16, C2 32), a yolo12l (C1 64, C2 128) and a
+    yolo11x (C1 96, C2 192) stem, calibrated, at 640 px, against its plain
+    version and its contract."""
     m = family_model(name).to(dev)
     assert m.stem_route == "fused"
     convs = (m.model[0], m.model[1])
@@ -389,7 +392,7 @@ def test_v10_predict_keep_matches_plain_nms(dev):
     assert int(out.det.valid.sum()) > 0
 
 
-@pytest.mark.parametrize("c1,c2,shape", [(96, 192, (1, 3, 64, 64)), (64, 36, (1, 3, 64, 64)),
+@pytest.mark.parametrize("c1,c2,shape", [(104, 208, (1, 3, 64, 64)), (64, 36, (1, 3, 64, 64)),
                                          (16, 32, (1, 4, 64, 64))])
 def test_fused_stem_kernel_refuses_shapes(dev, c1, c2, shape):
     params = stem_params(1, c1, c2, dev)

@@ -87,6 +87,27 @@ def test_plain_matches_phase_folded_stem_bf16(c1, c2):
     assert err <= 2.0 ** -7, f"bf16 stem differs by {err} of the map's scale"
 
 
+@pytest.mark.parametrize("name,seed", [("yolo11x", 0), ("yolo12x", 1)])
+def test_x_scale_stem_matches_phase_folded_stem_bf16(name, seed):
+    """yolo11x's and yolo12x's stems (C1 96, C2 192) take the fused route,
+    as the JAX model folds them, and in bf16 fused_stem (the CPU's plain
+    version) stays within 2^-7 of the map's scale of JAX's
+    phase_folded_stem; as two Conv modules they rounded at other points,
+    1.44e-2 of the scale apart."""
+    with torch.device("meta"):
+        tm = build_model(name, nc=2)
+    assert tm.stem_route == "fused" and tm.stem_widths == (96, 192)
+    params = _params(seed, 96, 192)
+    x = np.random.default_rng(seed + 7).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    want = np.asarray(_jax(phase_folded_stem, x, *params, dtype=jnp.bfloat16), np.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        got = S.fused_stem(xt, *stem_convs(_torch_params(*params)), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 192, 16, 16)
+    err = np.abs(got.permute(0, 2, 3, 1).float().numpy() - want).max() / np.abs(want).max()
+    assert err <= 2.0 ** -7, f"{name}: bf16 stem differs by {err} of the map's scale"
+
+
 @pytest.mark.parametrize("c1,c2,hw", [(16, 32, 64), (32, 64, 64), (16, 32, 128)])
 def test_plain_matches_pallas_stem(c1, c2, hw):
     """The mirror of tests/test_pallas_stem.py:35-45, against the port."""
@@ -156,7 +177,7 @@ def test_k4_weights_layout():
     assert torch.equal(bf, bf.to(torch.bfloat16).float()), "bf16 weights are not rounded"
 
 
-@pytest.mark.parametrize("shape,c1,c2", [((1, 3, 64, 64), 96, 128), ((1, 3, 64, 64), 64, 192),
+@pytest.mark.parametrize("shape,c1,c2", [((1, 3, 64, 64), 104, 128), ((1, 3, 64, 64), 64, 200),
                                          ((1, 4, 64, 64), 16, 32), ((1, 3, 66, 64), 16, 32)])
 def test_k4_refuses_shapes(shape, c1, c2):
     with pytest.raises(ValueError, match="K4 takes"):

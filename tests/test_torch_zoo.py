@@ -255,13 +255,14 @@ def test_unknown_family_or_size_raises():
 
 @pytest.mark.parametrize("name", ALL_NAMES)
 def test_stem_route_by_shape(name):
-    """K4 runs every stem of its range; yolo11x/12x (C1 96, C2 192) and
-    yolov9e (layer 0 read later) run two Conv modules. The route comes from
-    the spec and widths alone: the same on a meta tensor as on the CPU."""
+    """Every scale folds its stem, as the JAX model's spec gate does,
+    yolo11x/12x (C1 96, C2 192) included, and K4 takes every folded stem's
+    widths; yolov9e (layer 0 read later) runs two Conv modules. The route
+    comes from the spec alone: the same on a meta tensor as on the CPU."""
     with torch.device("meta"):  # shapes only
         tm = build_model(name, nc=2).eval()
         plain = build_model(name, nc=2, folded_stem=False).eval()
-    want = "conv" if name in ("yolo11x", "yolo12x", "yolov9e") else "fused"
+    want = "conv" if name == "yolov9e" else "fused"
     assert tm.stem_route == want
     assert (want == "fused") == tstem.k4_takes(*tm.stem_widths) or name == "yolov9e"
     for device in ("cpu", "meta"):
@@ -270,17 +271,21 @@ def test_stem_route_by_shape(name):
 
 
 def test_k4_range_unchanged():
-    assert tstem.K4_C1_RANGE == (16, 80) and tstem.K4_C2_RANGE == (32, 160)
-    assert tstem.k4_takes(80, 160) and not tstem.k4_takes(96, 192)
+    """K4's range reaches the x-scale stems of yolo11 and yolo12 (C1 96,
+    C2 192) and no further."""
+    assert tstem.K4_C1_RANGE == (16, 96) and tstem.K4_C2_RANGE == (32, 192)
+    assert tstem.k4_takes(80, 160) and tstem.k4_takes(96, 192)
+    assert not tstem.k4_takes(104, 192) and not tstem.k4_takes(96, 200)
+    tstem.check_k4_shapes((1, 3, 64, 64), 96, 192)
     with pytest.raises(ValueError, match="K4 takes C1"):
-        tstem.check_k4_shapes((1, 3, 64, 64), 96, 192)
+        tstem.check_k4_shapes((1, 3, 64, 64), 104, 208)
 
 
-@pytest.mark.parametrize("name,fused", [("yolo11n", True), ("yolo12x", False),
-                                        ("yolo11x", False)])
+@pytest.mark.parametrize("name,fused", [("yolo11n", True), ("yolo12x", True),
+                                        ("yolo11x", True), ("yolov9e", False)])
 def test_stem_route_taken_by_forward(name, fused, monkeypatch):
-    """The forward calls fused_stem exactly on the fused route (the wide
-    stems never reach K4, which would raise for them on the card)."""
+    """The forward calls fused_stem exactly on the fused route: the wide
+    stems of yolo11x/12x too (K4 on the card), not yolov9e's."""
     calls = []
     real = tyolo.fused_stem
     monkeypatch.setattr(tyolo, "fused_stem", lambda *a, **k: calls.append(1) or real(*a, **k))
