@@ -48,7 +48,29 @@ script exits non-zero without printing a result):
    (K4's counter) once per OoD batch over all combinations. K3 is then
    held against its plain version at the fitted 'all' and 'KMeans' banks
    on the OoD batch's features (``cluster_banks`` in the kernels line).
-6. e2e_serve (the serving path on the f32 path): e2e's detector saved as
+6. e2e_sdr (the SDR methods on the f32 path): e2e's detector and
+   e2e_sweeps' batches; one InD extraction, then for each of Umap,
+   CosineIvis, L1Ivis and L2Ivis a fit (the per-stride triplet embedders on
+   the card, 32 wide, then clusters and thresholds in the embedded space)
+   and an evaluation, with the counters read around each: fit seconds split
+   into the host's triplet sampling and an estimate of device time (each
+   stride's Adam step profiled), steps and widths per stride, eval
+   seconds, the OoD share, K3's launches (one per OoD batch for cosine and
+   l2, none for L1Ivis, which takes the plain l1 path) and K3 at D 32
+   against its plain version (device time, bound, cuBLAS + amin). The
+   card's distances against the CPU's on the same embedders and taps
+   within SDR_DIST_REL_LIMITS, decisions equal away from the threshold;
+   the card's fit held by quality (sdr_fit_quality): trustworthiness, for
+   the ivis methods class separation above PCA's, and the final loss
+   against a CPU fit's from the same init on the same triplets.
+   Then cli.benchmarks.run_benchmark's fusion_strategies (9 rows) and
+   best_methods (12 rows), cli.extract_activations with --model_path (e2e's
+   weights as a checkpoint; its per-group counts equal the phase's own
+   extraction) and embedding_plot._fit_transform in modes sdr and pca_sdr
+   on its payload (the plot itself needs matplotlib, which the card's
+   machine lacks). K3's D 32 entry in the kernels line carries its
+   launches.
+7. e2e_serve (the serving path on the f32 path): e2e's detector saved as
    a checkpoint (core/checkpoint.py) and loaded onto the card, bit-equal;
    cli.ood_eval --model_path for MSP and Cosine_cl_stride on e2e's batches
    written as datasets (the caches must carry the checkpoint's stem);
@@ -61,19 +83,19 @@ script exits non-zero without printing a result):
    group; one full served group against the CPU's plain versions within
    REF_LIMITS. The counters are reset just before and read just after the
    predict CLI and the server, and K1-K4 must have launched in each.
-7. e2e_bf16 (the --bf16 path): the same weights and batches in a bf16
+8. e2e_bf16 (the --bf16 path): the same weights and batches in a bf16
    detector (f32 parameters, bf16 compute and taps), extract -> fit ->
    evaluate again with the counters reset; K4 and K2's bf16 route must have
    launched. Prints the bf16 predict step and the share of detections and of
    per-box decisions that differ from the f32 path, each under a ceiling.
-8. reference: one image through the card (kernels) and through the CPU
+9. reference: one image through the card (kernels) and through the CPU
    (plain PyTorch versions) with the same weights; maps, detections and
    taps must agree within REF_LIMITS, and each layer (the stem also
    through fused_stem, K4 on the card) within LAYER_REL_TOL on the CPU's
    own input to it.
-9. profile, profile_bf16: device time of the predict step by kernel
+10. profile, profile_bf16: device time of the predict step by kernel
    (torch.profiler).
-10. kernels: each kernel against its plain PyTorch version on the card, on
+11. kernels: each kernel against its plain PyTorch version on the card, on
    tensors captured from the main paths (plus controlled, chain, k = 4096,
    (2, 8400) and k = 16384 NMS cases, K 5 and K 200 centroid banks with
    masked centroids and empty groups, yolov8n's stem widths and a corner
@@ -90,9 +112,9 @@ script exits non-zero without printing a result):
    carry ``eul_rank``: their numbers at the EUL rank's inputs, and K3
    ``cluster_banks``: its numbers at the sweep's fitted banks. Launch
    counts add up every main path's run (e2e, e2e_eul, e2e_sweeps, e2e_serve,
-   e2e_bf16);
+   e2e_bf16); e2e_sdr's entry carries its own;
    e2e_families' entries carry their own model's counts.
-11. e2e_families (the other YOLO families on the f32 path): yolov9c,
+12. e2e_families (the other YOLO families on the f32 path): yolov9c,
    yolov10l, yolo11l and yolo12l (the l models of the paper's V9-V12
    results) at 640 px, nc=20, batch 8, TF32 off, seeded, BatchNorm
    calibrated and head spread as in e2e, 2 InD batches and one OoD batch
@@ -108,12 +130,12 @@ script exits non-zero without printing a result):
    against their plain versions on the model's own tensors, as kernel
    entries tagged with the model. yolo12l runs again
    in bf16 (attention, K2b and K4's bf16 route at full width).
-12. e2e_xscale (K4's second specialization, C1 96 / C2 192): yolo11x
+13. e2e_xscale (K4's second specialization, C1 96 / C2 192): yolo11x
    seeded, BatchNorm calibrated and head spread, one predict step in f32
    and in bf16 with the counters reset just before and read just after (K4
    once each), then K4 against its plain version on that stem, kernel
    entries tagged ``model: yolo11x``.
-13. stem_parts (the stem probe ladder's path): the ladder entry point
+14. stem_parts (the stem probe ladder's path): the ladder entry point
    (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
    driven through all four ladders at full size, z (128, 160(+2), 160, 48)
    bf16, with the counters reset just before and read just after; the
@@ -738,7 +760,404 @@ def phase_e2e_sweeps(torch, det):
     if failures:
         raise AssertionError("e2e_sweeps: " + "; ".join(failures))
     total = {k: cm_launches[k] + ul_launches[k] for k in cm_launches}
-    return total, banks
+    return total, banks, ind, ood
+
+
+# the SDR methods (supervised dimensionality reduction, e2e_sdr): K3 runs on
+# their 32-wide embeddings for cosine and l2, L1Ivis takes the plain l1 path
+SDR_RUN = ("Umap", "CosineIvis", "L1Ivis", "L2Ivis")
+SDR_K3 = {"Umap": "cosine", "CosineIvis": "cosine", "L2Ivis": "l2"}
+# the card's SDR distances against the CPU's on the same embedders and taps:
+# max |d_card - d_cpu| / max d_cpu over the boxes with a cluster, and the
+# decisions of boxes farther than that from their threshold equal. Set from
+# `python3 chip_smoke.py --reference-seeds 4` (sdr_spread: seeds 0-3 of
+# e2e_sdr's scenes, sound and with a 1e-3 fault in the embedders' first
+# layer; PERF.md §5): 4-5x above each method's worst sound reading, 3x or
+# more below its least fault move
+SDR_DIST_REL_LIMITS = {
+    "Umap": 5e-5,        # sound <= 1.06e-5, fault >= 1.58e-4
+    "CosineIvis": 5e-5,  # sound <= 9.5e-6, fault >= 1.74e-4
+    "L1Ivis": 5e-6,      # sound <= 1.03e-6, fault >= 6.1e-4
+    "L2Ivis": 2e-4,      # sound <= 4.7e-5 (l2 near 0 is a cancelled root), fault >= 5.9e-4
+}
+SDR_PROFILE_STEPS = 10
+# the card's SDR fits held by quality (sdr_fit_quality) on each stride of
+# at least SDR_QUALITY_MIN_ROWS rows and two classes (the rest are read):
+# trustworthiness (SDR_TRUST_K neighbours) above SDR_TRUST_MIN and, for the
+# ivis methods, class separation above a 32-component PCA's (the bounds
+# tests/test_sdr_quality.py puts on CPU fits; its second trustworthiness
+# bound, within 0.1 of PCA's, is left out: on these features PCA keeps
+# 0.996-1.000 and the CPU's own ivis fits read 0.835-0.953); and the final
+# loss within SDR_FIT_LOSS_REL of a CPU fit's from the same init on the same
+# triplets. The embeddings themselves cannot be held to the CPU's: the
+# trajectories part within the first steps (scripts/bench_sdr_fit) and
+# after 120 steps read 20-147 % apart. Set from `python3 chip_smoke.py
+# --reference-seeds 4` (4 seeds, sound and with SDR_FIT_FAULTS; PERF.md §6,
+# PR 12): sound, trustworthiness >= 0.837, ivis separation 1.26-2.99x
+# PCA's, losses <= 0.112 apart; every fault reading fails a bound (ivis:
+# separation 0.50-0.98x PCA's; Umap untrained: losses >= 2.18 apart).
+SDR_TRUST_K, SDR_TRUST_MIN, SDR_FIT_LOSS_REL = 10, 0.75, 0.5
+SDR_QUALITY_MIN_ROWS = 100
+# the faults sdr_spread puts into the card's fit to show what the bounds
+# catch: no training (lr 0: the initial network) and, for the ivis
+# methods, the labels shuffled (a seeded permutation)
+SDR_FIT_FAULTS = ("untrained", "shuffled_labels")
+
+
+def sdr_copy(torch, m, fault: float = 0.0):
+    """The same fitted SDR method with its embedders copied to the CPU; with
+    ``fault``, copies on the embedders' own device whose first layer's
+    weights are scaled by 1 + fault."""
+    import copy
+    import dataclasses
+
+    def move(e):
+        if e is None:
+            return None
+        e = copy.deepcopy(e)
+        if not fault:
+            return e.cpu()
+        with torch.no_grad():
+            e.layers[0].weight.mul_(1.0 + fault)
+        return e
+
+    c = dataclasses.replace(m, _banks={})
+    c.sdr_state = dict(m.sdr_state, embedders=[move(e) for e in m.sdr_state["embedders"]])
+    return c
+
+
+def sdr_reading(torch, m, out, neck_ch, fault: float = 0.0) -> dict:
+    """One batch's SDR distances through the card (K3 at D 32 for cosine and
+    l2) against the CPU's plain path on the same embedders and the same taps
+    (moved to the CPU): the largest difference relative to the largest CPU
+    distance over the valid boxes that have a cluster, and whether the
+    decisions agree on boxes farther than the method's SDR_DIST_REL_LIMITS
+    of that scale from their threshold. ``fault``: the card's embedders'
+    first layer scaled by 1 + fault."""
+    from ood_in_object_detection_torch.engine import PredictOutput
+    from ood_in_object_detection_torch.ood.distance import NO_CLUSTER_DISTANCE
+    from ood_in_object_detection_torch.ood.pipeline import _to, distance_features
+    from ood_in_object_detection_torch.ood.scores import table_lookup
+
+    card = sdr_copy(torch, m, fault) if fault else m
+    cpu = sdr_copy(torch, m)
+    d_card = card.distances(*distance_features(card, out, neck_ch)).cpu()
+    out_cpu = _to(PredictOutput(*out[:6], ()), "cpu")
+    f, cls, lvl = distance_features(cpu, out_cpu, neck_ch)
+    d_cpu = cpu.distances(f, cls, lvl)
+    keep = out_cpu.det.valid.reshape(-1) & (d_cpu < NO_CLUSTER_DISTANCE)
+    scale = float(d_cpu[keep].abs().max())
+    err = float((d_card - d_cpu)[keep].abs().max()) / scale
+    thr = table_lookup(cpu.packed_thresholds(), cls, lvl)
+    clear = keep & ((d_cpu - thr).abs() > SDR_DIST_REL_LIMITS[m.name] * scale)
+    dec_card, dec_cpu = ((d < thr) & ~torch.isnan(thr) for d in (d_card, d_cpu))
+    return dict(boxes=int(keep.sum()), dist_rel_err=err,
+                dist_abs_err=float((d_card - d_cpu)[keep].abs().max()), scale=scale,
+                clear_boxes=int(clear.sum()),
+                decisions_equal=bool(torch.equal(dec_card[clear], dec_cpu[clear])))
+
+
+def trustworthiness(x: np.ndarray, z: np.ndarray, k: int) -> float:
+    """scikit-learn's ``manifold.trustworthiness`` (euclidean): 1 minus the
+    normalised excess rank, in ``x``, of each row's k nearest rows in
+    ``z``."""
+    n = len(x)
+
+    def sqdist(a):
+        a = np.asarray(a, np.float64)
+        sq = (a * a).sum(1)
+        d = sq[:, None] + sq[None, :] - 2.0 * a @ a.T
+        np.fill_diagonal(d, np.inf)
+        return d
+
+    rank = np.empty((n, n), np.int64)
+    rank[np.arange(n)[:, None], np.argsort(sqdist(x), axis=1)] = np.arange(1, n + 1)
+    nn_z = np.argsort(sqdist(z), axis=1)[:, :k]
+    excess = rank[np.arange(n)[:, None], nn_z] - k
+    return float(1.0 - excess[excess > 0].sum() * 2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)))
+
+
+def class_separation(z: np.ndarray, y: np.ndarray) -> float:
+    """Mean distance between class centroids over the mean distance of a
+    row to its class centroid (tests/test_sdr_quality.py)."""
+    classes = np.unique(y)
+    cents = np.stack([z[y == c].mean(0) for c in classes])
+    intra = np.mean([np.linalg.norm(z[y == c] - cents[i], axis=1).mean()
+                     for i, c in enumerate(classes)])
+    d = np.linalg.norm(cents[:, None] - cents[None, :], axis=-1)
+    return float(d[np.triu_indices(len(classes), 1)].mean() / max(intra, 1e-9))
+
+
+def sdr_fit_quality(torch, m, acts, fault=None, cpu_fits=None) -> dict:
+    """Each stride's card-fitted embedder of the fitted SDR method ``m`` on
+    its own fit rows: trustworthiness and class separation by the rows'
+    labels, beside a 32-component PCA's of the normalised rows
+    (cli/embedding_plot.PCA) and the same fit on the CPU (same init, same
+    triplets); the final losses and the embeddings' gap; and the bounds
+    the card's fit misses (``failures``) on the strides it is held on
+    (``held``). ``fault``, one of SDR_FIT_FAULTS: the card's embedders are
+    fitted anew with it. ``cpu_fits``: a dict that keeps the CPU's
+    embedders (per stride) for the next reading of the same method."""
+    from ood_in_object_detection_torch.cli.embedding_plot import PCA
+    from ood_in_object_detection_torch.core.config import CUSTOM_HYP
+    from ood_in_object_detection_torch.ood import sdr as SDR
+
+    ivis_p = CUSTOM_HYP.dr.ivis
+    fit = dict(out_dim=ivis_p.EMBEDDING_DIMS, k_neighbors=ivis_p.K)
+    kind = m.sdr_state["kind"]
+    cpu_fits = {} if cpu_fits is None else cpu_fits
+    strides, failures = [], []
+    for s, emb in enumerate(m.sdr_state["embedders"]):
+        samples = SDR.stride_samples(acts, s, "ivis")  # the labels, for both kinds
+        if emb is None or samples is None:
+            strides.append(None)
+            continue
+        x, y = samples
+        fit_y = y if kind == "ivis" else None
+        if fault == "untrained":
+            emb = SDR.fit_triplet_embedder(x, fit_y, **fit, lr=0.0, device=DEVICE)
+        elif fault == "shuffled_labels":
+            emb = SDR.fit_triplet_embedder(x, np.random.default_rng(SEED).permutation(y),
+                                           **fit, device=DEVICE)
+        if s not in cpu_fits:
+            cpu_fits[s] = SDR.fit_triplet_embedder(x, fit_y, **fit, device="cpu")
+        flat = SDR.normalized_rows(x)
+        z, z_cpu = emb.transform(x), cpu_fits[s].transform(x)
+        z_pca = PCA(min(ivis_p.EMBEDDING_DIMS, *flat.shape)).fit(flat).transform(flat)
+        held = len(x) >= SDR_QUALITY_MIN_ROWS and len(np.unique(y)) > 1
+        loss, loss_cpu = emb.fit_stats["final_loss"], cpu_fits[s].fit_stats["final_loss"]
+        r = dict(n=len(x), classes=int(len(np.unique(y))), steps=emb.fit_stats["steps"],
+                 held=held, final_loss=loss, final_loss_cpu=loss_cpu,
+                 final_loss_rel=abs(loss - loss_cpu) / abs(loss_cpu),
+                 embedding_gap_cpu=float(np.linalg.norm(z - z_cpu) / np.linalg.norm(z_cpu)),
+                 cpu_fit_s=cpu_fits[s].fit_stats["seconds"])
+        if len(x) > 2 * SDR_TRUST_K + 1:
+            r.update(trust=trustworthiness(flat, z, SDR_TRUST_K),
+                     trust_cpu=trustworthiness(flat, z_cpu, SDR_TRUST_K),
+                     trust_pca=trustworthiness(flat, z_pca, SDR_TRUST_K))
+        if r["classes"] > 1:
+            r.update(separation=class_separation(z, y), separation_cpu=class_separation(z_cpu, y),
+                     separation_pca=class_separation(z_pca, y))
+        if held:
+            if not r["trust"] > SDR_TRUST_MIN:
+                failures.append(f"stride {s}: trustworthiness {r['trust']:.4f}")
+            if kind == "ivis" and not r["separation"] > r["separation_pca"]:
+                failures.append(f"stride {s}: class separation {r['separation']:.4f} (PCA "
+                                f"{r['separation_pca']:.4f})")
+            if not r["final_loss_rel"] <= SDR_FIT_LOSS_REL:
+                failures.append(f"stride {s}: final loss {loss:.4f} (CPU {loss_cpu:.4f})")
+        strides.append(r)
+    return dict(fault=fault, strides=strides, failures=failures)
+
+
+def sdr_fit_device_ms(torch, m, acts) -> list:
+    """Per stride, the device milliseconds of one Adam step of that stride's
+    embedder (torch.profiler over SDR_PROFILE_STEPS steps of a fresh copy of
+    its architecture on the same rows and triplets), None for a stride
+    without an embedder."""
+    from ood_in_object_detection_torch.ood import sdr as SDR
+    from ood_in_object_detection_torch.scripts import bench_k3 as BK3
+
+    out = []
+    for s, emb in enumerate(m.sdr_state["embedders"]):
+        if emb is None:
+            out.append(None)
+            continue
+        x, labels = SDR.stride_samples(acts, s, m.sdr_state["kind"])
+        flat = SDR.normalized_rows(x)
+        probe = SDR.TripletEmbedder(emb.widths).to(DEVICE)
+        ms = BK3.device_ms(lambda: SDR.train_triplet_embedder(
+            probe, flat, labels, max_steps=SDR_PROFILE_STEPS), 1)
+        out.append(ms / SDR_PROFILE_STEPS)
+    return out
+
+
+def phase_e2e_sdr(torch, det, ind, ood):
+    """The SDR methods on the f32 path, on e2e's detector and e2e_sweeps'
+    batches (8 InD batches of seeded scenes, one OoD batch): extract once,
+    then for each of Umap, CosineIvis, L1Ivis and L2Ivis fit (the per-stride
+    embedders on the card, clusters, thresholds) and evaluate, with the
+    counters read around each; the card's distances against the CPU's on the
+    same embedders (sdr_reading); K3 at D 32 against its plain version; the
+    fusion_strategies and best_methods sweeps through
+    cli.benchmarks.run_benchmark; cli.extract_activations with --model_path
+    (e2e's weights) and embedding_plot._fit_transform in modes sdr and
+    pca_sdr on its payload. -> (the counters over the whole phase, the
+    kernels line's K3 D 32 entry)."""
+    import logging
+    import tempfile
+    from pathlib import Path
+
+    from ood_in_object_detection_torch import constants as C
+    from ood_in_object_detection_torch.cli import benchmarks as B
+    from ood_in_object_detection_torch.cli import embedding_plot as EP
+    from ood_in_object_detection_torch.cli import extract_activations as XA
+    from ood_in_object_detection_torch.cli import ood_eval as E
+    from ood_in_object_detection_torch.core.checkpoint import save_checkpoint
+    from ood_in_object_detection_torch.ood.methods import FusionOODMethod
+    from ood_in_object_detection_torch.ood.pipeline import (_decisions_for_method,
+                                                            distance_features, evaluate_method,
+                                                            extract_ind_activations,
+                                                            fit_ind_pipeline)
+    from ood_in_object_detection_torch.scripts import bench_k3 as BK3
+
+    t_phase = time.perf_counter()
+    known, names = list(range(NC)), [f"c{k}" for k in range(NC)] + ["unknown"]
+    neck_ch = det.neck_channels()
+    methods = {n: E.build_ood_method(n, device=det.device) for n in SDR_RUN}
+    failures, per_method, k3_cases = [], [], []
+    # the main path's launches: the windows around the extraction, each fit
+    # and evaluation, the sweeps and the activation dump (not the checks)
+    path_launches = []
+    reset_counters()
+    t0 = time.perf_counter()
+    acts = extract_ind_activations(det, ind, FusionOODMethod(list(methods.values())),
+                                   conf_thr_train=CONF)
+    extract_s = time.perf_counter() - t0
+    path_launches.append(read_counters())
+    out = det.predict(ood[0]["images"], conf_thres=CONF)
+    for name, m in methods.items():
+        before, t0 = read_counters(), time.perf_counter()
+        fit_ind_pipeline(m, acts, tpr=0.95)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        embs = m.sdr_state["embedders"]
+        t0 = time.perf_counter()
+        res = evaluate_method(det, ood, m, known, names, conf_thr_test=CONF)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = _delta(before)
+        path_launches.append(launches)
+        dec = _decisions_for_method(m, out, neck_ch).cpu()
+        valid = out.det.valid.cpu()
+        stats = [e.fit_stats if e is not None else None for e in embs]
+        step_ms = sdr_fit_device_ms(torch, m, acts[id(m)])
+        reading = sdr_reading(torch, m, out, neck_ch)
+        quality = sdr_fit_quality(torch, m, acts[id(m)])
+        row = dict(method=name, metric=m.metric, kind=m.sdr_state["kind"], fit_s=fit_s,
+                   fit_embedders_s=sum(st["seconds"] for st in stats if st),
+                   fit_host_sampling_s=sum(st["sampling_s"] for st in stats if st),
+                   fit_device_s_est=sum(st["steps"] * ms / 1e3 for st, ms in zip(stats, step_ms)
+                                        if st),
+                   strides=[None if st is None else dict(
+                       n=st["n"], widths=st["widths"], steps=st["steps"], seconds=st["seconds"],
+                       sampling_s=st["sampling_s"], device_ms_per_step=ms)
+                            for st, ms in zip(stats, step_ms)],
+                   eval_s=eval_s, ood_share=float(1.0 - dec[valid].float().mean()),
+                   k3_launches=launches["min_group_distances"], launches=launches,
+                   owod=res, card_vs_cpu=reading, fit_quality=quality)
+        if name in SDR_K3:
+            feats, groups, kmask = m.group_inputs(distance_features(m, out, neck_ch)[0])
+            r = BK3.measure(feats, groups, kmask, m.metric, reps=20)
+            if "error" in r or not r["agrees"]:
+                failures.append(f"{name}: K3 at D 32 disagrees with its plain version: {r}")
+            emit("kernel_case", kernel="min_group_distance", case=f"sdr_d32_{name}", **r)
+            k3_cases.append(dict(case=f"sdr_d32_{name}", **r))
+            row["k3_d32"] = {k: r.get(k) for k in ("shape", "ms", "device_ms", "plain_ms",
+                                                     "bound_ms", "cublas_amin_ms",
+                                                     "max_abs_err")}
+        per_method.append(row)
+        if not all(embs[s] is not None for s in range(3)) or \
+                any(e.out_dim != 32 for e in embs if e is not None):
+            failures.append(f"{name}: not every stride got a 32-wide embedder: {stats}")
+        if set(res) != OWOD_KEYS or not all(np.isfinite(v) for v in res.values()):
+            failures.append(f"{name}: bad OWOD metric dict {res}")
+        if (launches["min_group_distances"] >= len(ood)) != (name in SDR_K3):
+            failures.append(f"{name}: K3 launches {launches['min_group_distances']} in its "
+                            f"evaluation of {len(ood)} batches")
+        if reading["dist_rel_err"] > SDR_DIST_REL_LIMITS[name] or not reading["decisions_equal"]:
+            failures.append(f"{name}: card and CPU distances disagree: {reading}")
+        if quality["failures"] or not any(st and st["held"] for st in quality["strides"]):
+            failures.append(f"{name}: the card's fit misses the quality bounds: {quality}")
+    fit_launches = _added(*path_launches)
+
+    # the two sweeps whose grids hold the SDR methods, and the offline tools
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sdr_")
+    root = Path(tmp.name)
+    paths = (C.RESULTS_PATH, C.STORAGE_PATH, C.TEMPORAL_STORAGE_PATH)
+    C.RESULTS_PATH, C.STORAGE_PATH = root / "results", root / "storage"
+    C.TEMPORAL_STORAGE_PATH = root / "temp"
+    log = logging.getLogger("chip_smoke.sdr")
+    sweeps, tools = {}, {}
+    try:
+        yaml = write_dataset(root / "ood", ood)
+        for sweep, n_rows in (("fusion_strategies", 9), ("best_methods", 12)):
+            args = E.build_parser().parse_args([
+                "--ood_method", "MSP", "--ind_dataset", str(yaml), "--ood_datasets", str(yaml),
+                "--device", "0", "--model", MODEL[-1], "--img_size", str(IMG),
+                "--batch_size", str(BATCH), "--conf_thr_train", str(CONF),
+                "--conf_thr_test", str(CONF), "--benchmark", sweep, "--name", "chip_smoke"])
+            before, t0 = read_counters(), time.perf_counter()
+            rows = B.run_benchmark(args, det, E.build_ood_method("MSP", device=det.device),
+                                   ind, log)
+            torch.cuda.synchronize()
+            sweeps[sweep] = dict(seconds=time.perf_counter() - t0, rows=len(rows),
+                                 methods=sorted({r["Method"] for r in rows}),
+                                 launches=_delta(before))
+            path_launches.append(sweeps[sweep]["launches"])
+            bad = [r["Method"] for r in rows if not all(
+                np.isfinite(r[k]) for k in r if k.endswith("(COOD)"))]
+            if len(rows) != n_rows or bad:
+                failures.append(f"{sweep}: {len(rows)} rows (want {n_rows}), not finite: {bad}")
+        ckpt = root / "ckpt" / "chip_smoke_sdr"
+        save_checkpoint(ckpt, det.model, {"name": ckpt.name, "nc": NC}, MODEL)
+        ind_yaml = write_dataset(root / "ind", ind)
+        before, t0 = read_counters(), time.perf_counter()
+        payload = XA.main(["--dataset", str(ind_yaml), "--model_path", str(ckpt),
+                           "--device", "0", "--img_size", str(IMG), "--batch_size", str(BATCH),
+                           "--conf_thr", str(CONF), "--out", str(root / "acts.pkl")])
+        torch.cuda.synchronize()
+        counts = group_counts(payload["roi_feats"])
+        want = group_counts(acts[id(methods["CosineIvis"])])
+        tools["extract_activations"] = dict(seconds=time.perf_counter() - t0,
+                                            samples=sum(counts), launches=_delta(before))
+        path_launches.append(tools["extract_activations"]["launches"])
+        if counts != want or len(payload["logits"]) != NC:
+            failures.append(f"extract_activations: per-group samples {counts}, the phase's "
+                            f"extraction {want}")
+        x, y = EP._gather(payload["roi_feats"], [0, 1, 2], 500, np.random.default_rng(0))
+        known = y < NC // 2
+        for mode in ("sdr", "pca_sdr"):
+            t0 = time.perf_counter()
+            ek, eu = EP._fit_transform(mode, x[known], y[known], x[~known], epochs=20,
+                                       k_neighbors=15, device=DEVICE)
+            tools[f"embedding_{mode}"] = dict(seconds=time.perf_counter() - t0,
+                                              known=list(ek.shape), unknown=list(eu.shape))
+            if ek.shape != (int(known.sum()), 2) or eu.shape != (int((~known).sum()), 2) or \
+                    not (np.isfinite(ek).all() and np.isfinite(eu).all()):
+                failures.append(f"embedding_plot {mode}: {ek.shape} {eu.shape}")
+    finally:
+        C.RESULTS_PATH, C.STORAGE_PATH, C.TEMPORAL_STORAGE_PATH = paths
+        tmp.cleanup()
+    launches = _added(*path_launches)
+    emit("e2e_sdr", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, dtype="float32",
+         ind_batches=len(ind), ood_batches=len(ood), extract_s=extract_s,
+         samples_per_stride=[sum(len(per_cls[s]) for per_cls in acts[id(methods["Umap"])]
+                                 if isinstance(per_cls[s], np.ndarray)) for s in range(3)],
+         methods=per_method, dist_rel_limits=SDR_DIST_REL_LIMITS, fit_quality_bounds=dict(
+             trust_k=SDR_TRUST_K, trust_min=SDR_TRUST_MIN, loss_rel=SDR_FIT_LOSS_REL,
+             min_rows=SDR_QUALITY_MIN_ROWS),
+         fit_eval_launches=fit_launches,
+         sweeps=sweeps, tools=tools, launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("e2e_sdr: " + "; ".join(failures))
+    main = k3_cases[1]  # CosineIvis, the paper's SDR method
+    entry = dict(name="min_group_distance", route="cuda",
+                 source="ood_in_object_detection_torch/csrc/min_group_distance.cu",
+                 replaces="ood_in_object_detection_tpu/ops/pallas/distance.py:59",
+                 case="sdr_d32", launches=launches["min_group_distances"],
+                 max_abs_err=max(c["max_abs_err"] for c in k3_cases),
+                 **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                         "cublas_amin_ms")},
+                 library_ms=None,
+                 library="none: no single PyTorch call computes the masked minimum over each "
+                         "group's centroids (cublas_amin_ms: x @ C.T, then the distance, the "
+                         "mask and amin, several calls)",
+                 cases=[{k: c[k] for k in ("case", "shape", "metric", "valid_centroids", "ms",
+                                           "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                           "cublas_amin_ms", "max_abs_err")} for c in k3_cases])
+    return launches, entry
 
 
 # the serving path (e2e_serve): requests, client threads, the collector's wait
@@ -1309,18 +1728,57 @@ def phase_reference(torch, det, images, label="reference", model=MODEL):
         raise AssertionError(f"{model}: card and CPU disagree on the reference image")
 
 
+def sdr_spread(torch, det, seed, worst) -> None:
+    """The readings SDR_DIST_REL_LIMITS stand on, for one seed: the four SDR
+    methods fitted on the card on SWEEP_BATCHES labelled batches of seeded
+    scenes (seed 0: e2e_sdr's), then sdr_reading on one more, sound and with
+    a fault of STEM_FAULT in the card's embedders' first layer, and
+    sdr_fit_quality, sound and with each of SDR_FIT_FAULTS that applies;
+    one line a reading, the worst per method and fault into ``worst``."""
+    from ood_in_object_detection_torch.cli.factory import build_ood_method
+    from ood_in_object_detection_torch.ood.methods import FusionOODMethod
+    from ood_in_object_detection_torch.ood.pipeline import extract_ind_activations, fit_ind_pipeline
+
+    rng = np.random.default_rng(SEED + 20 + 1000 * seed)  # e2e_sweeps' scenes at seed 0
+    ind = label_batches(det, make_scenes(rng, SWEEP_BATCHES))
+    ood = label_batches(det, make_scenes(rng, 1), unknown_every=3)
+    methods = {n: build_ood_method(n, device=det.device) for n in SDR_RUN}
+    acts = extract_ind_activations(det, ind, FusionOODMethod(list(methods.values())),
+                                   conf_thr_train=CONF)
+    out = det.predict(ood[0]["images"], conf_thres=CONF)
+    for name, m in methods.items():
+        fit_ind_pipeline(m, acts, tpr=0.95)
+        for fault in (0.0, STEM_FAULT):
+            r = sdr_reading(torch, m, out, det.neck_channels(), fault=fault)
+            emit("sdr_reading", method=name, seed=seed, fault=fault, **r)
+            w = worst.setdefault(f"sdr {name} fault {fault}", dict(dist_rel_err=0.0))
+            w["dist_rel_err"] = max(w["dist_rel_err"], r["dist_rel_err"])
+            w["decisions_equal"] = w.get("decisions_equal", True) and r["decisions_equal"]
+        cpu_fits = {}
+        for fault in (None,) + SDR_FIT_FAULTS:
+            if fault == "shuffled_labels" and m.sdr_state["kind"] != "ivis":
+                continue
+            r = sdr_fit_quality(torch, m, acts[id(m)], fault=fault, cpu_fits=cpu_fits)
+            emit("sdr_fit_quality", method=name, seed=seed, **r)
+            w = worst.setdefault(f"sdr fit {name} fault {fault}", dict(caught=0, readings=0))
+            w["caught"] += bool(r["failures"])
+            w["readings"] += 1
+
+
 def reference_spread(torch, n_seeds: int) -> None:
     """The readings REF_LIMITS stand on: yolov8l and each family on
     ``n_seeds`` seeds of weights and images (seed 0 is the main run's),
     each sound and with a fault of STEM_FAULT at the card's stem output;
-    one line a reading, then each model's worst per error. Asserts
-    nothing."""
+    and, on yolov8l, those of SDR_DIST_REL_LIMITS (sdr_spread); one line a
+    reading, then each model's worst per error. Asserts nothing."""
     worst = {}
     for name in (MODEL,) + FAMILIES:
         for s in range(n_seeds):
             rng = np.random.default_rng(SEED + (0 if name == MODEL else 10) + 1000 * s)
             images = make_batches(rng, 3)  # main run: 2 InD batches, then the OoD batch
             det = family_detector(torch, name, images, seed=model_seed(name) + 1000 * s)
+            if name == MODEL:
+                sdr_spread(torch, det, s, worst)
             for fault in (0.0, STEM_FAULT):
                 r = reference_reading(torch, det, images[2], fault=fault)
                 layer = sorted(r["layers"].items(), key=lambda kv: -kv[1])[:3]
@@ -2019,7 +2477,8 @@ def main() -> int:
         return 0
     det, methods, ind, ood, launches, step_ms = phase_e2e(torch)
     launches_eul, eul_parts = phase_e2e_eul(torch, det, methods["Cosine_cl_stride"], ood)
-    launches_sweeps, cluster_banks = phase_e2e_sweeps(torch, det)
+    launches_sweeps, cluster_banks, sweep_ind, sweep_ood = phase_e2e_sweeps(torch, det)
+    launches_sdr, sdr_entry = phase_e2e_sdr(torch, det, sweep_ind, sweep_ood)
     launches_serve = phase_e2e_serve(torch, det, ind, ood, env)
     det16, launches16, step16_ms = phase_e2e_bf16(torch, det, methods, ind, ood)
     images = ood[0]["images"]
@@ -2030,6 +2489,7 @@ def main() -> int:
         entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
                                 _added(launches, launches16, launches_eul, launches_sweeps,
                                        launches_serve), eul_parts, cluster_banks)
+    entries.append(sdr_entry)
     entries += phase_e2e_families(torch)
     entries += phase_xscale_stem(torch, images)
     entries += phase_stem_parts(torch)

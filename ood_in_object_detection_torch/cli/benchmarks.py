@@ -6,19 +6,21 @@ ood_evaluation.py:847-1342). Each sweep iterates one knob over its grid in
 writing one CSV/XLSX row per grid point:
 
 - ``conf_thr_test``: one InD fit, an evaluation per point (reference :1031);
+- ``fusion_strategies``: one InD fit per fusion method of the grid, an
+  evaluation per strategy (and, or, score) on it (reference :1217);
 - ``used_tpr``: the InD activations extracted once and reloaded from the
   disk cache for every later point, thresholds refit per point;
 - ``conf_thr_train``, ``which_split_for_ind_scores``, ``cluster_methods``,
-  ``logits_methods``: a full InD fit per point (``cluster_methods`` fits the
-  distance method with each clusterer of the grid);
+  ``logits_methods``, ``best_methods``: a full InD fit per point
+  (``cluster_methods`` fits the distance method with each clusterer of the
+  grid; ``best_methods`` fits every logits and distance method, the SDR
+  ones included);
 - ``unk_loc_enhancement``: one InD fit, then an EUL evaluation per
   combination of CUSTOM_HYP.unk values (:1283-1342), under
   CUSTOM_HYP.BENCHMARK_MODE (the post-NMS prediction cache, so the forward
   runs once per batch) restored afterwards.
 
-``best_methods`` and ``fusion_strategies`` sweep grids that hold the SDR
-methods (Umap, CosineIvis, L1Ivis, L2Ivis), which are not ported: they
-raise NotImplementedError naming ROADMAP.md A10 before any work.
+Methods a sweep builds fit their SDR embedders on the detector's device.
 """
 
 from __future__ import annotations
@@ -30,18 +32,13 @@ from typing import Dict, List
 from .. import constants as C
 from ..core.config import CUSTOM_HYP, set_by_dotted_path
 from ..eval.results_writer import append_results
-from ..ood.methods import SDR_METHODS
 from .factory import build_ood_method
 
 
 def check_sweep(name: str) -> None:
-    """Raise for a sweep the port refuses, before any work."""
+    """Raise for an unknown sweep, before any work."""
     if name not in C.AVAILABLE_BENCHMARKS:
         raise ValueError(f"unknown benchmark {name}")
-    if name in ("best_methods", "fusion_strategies"):
-        raise NotImplementedError(
-            f"--benchmark {name} sweeps the SDR methods ({', '.join(SDR_METHODS)}), which "
-            "need the SDR embedder (ROADMAP.md A10)")
 
 
 def run_benchmark(args, detector, method, ind_batches, logger, val_batches=None) -> List[Dict]:
@@ -61,12 +58,12 @@ def run_benchmark(args, detector, method, ind_batches, logger, val_batches=None)
                       val_batches=val_batches)
         rows.extend(run_eval(local_args, detector, local_method, logger))
 
-    if name == "logits_methods":
+    if name in ("best_methods", "logits_methods"):
         for m_name in C.BENCHMARKS[name]:
             logger.info("benchmark %s: method=%s", name, m_name)
             m = build_ood_method(m_name, args.cluster_method, args.cluster_optimization_metric,
                                  args.fusion_strategy, args.temperature_energy,
-                                 args.temperature_odin)
+                                 args.temperature_odin, device=detector.device)
             a = deepcopy(args)
             a.ood_method = m_name
             full_run(a, m)
@@ -91,7 +88,7 @@ def run_benchmark(args, detector, method, ind_batches, logger, val_batches=None)
                 a.cluster_method = v
                 m = build_ood_method(args.ood_method, v, args.cluster_optimization_metric,
                                      args.fusion_strategy, args.temperature_energy,
-                                     args.temperature_odin)
+                                     args.temperature_odin, device=detector.device)
             full_run(a, m)
     elif name == "conf_thr_test":
         configure_ind(args, detector, method, ind_batches, logger, val_batches=val_batches)
@@ -99,6 +96,21 @@ def run_benchmark(args, detector, method, ind_batches, logger, val_batches=None)
             a = deepcopy(args)
             a.conf_thr_test = v
             rows.extend(run_eval(a, detector, method, logger))
+    elif name == "fusion_strategies":
+        fusion_names, strategies = C.BENCHMARKS["fusion_strategies"]
+        for f_name in fusion_names:
+            logger.info("benchmark %s: method=%s", name, f_name)
+            m = build_ood_method(f_name, args.cluster_method, args.cluster_optimization_metric,
+                                 "and", args.temperature_energy, args.temperature_odin,
+                                 device=detector.device)
+            a0 = deepcopy(args)
+            a0.ood_method = f_name
+            configure_ind(a0, detector, m, ind_batches, logger, val_batches=val_batches)
+            for strat in strategies:
+                m.strategy = strat
+                a = deepcopy(a0)
+                a.fusion_strategy = strat
+                rows.extend(run_eval(a, detector, m, logger))
     elif name == "unk_loc_enhancement":
         grid_spec = C.BENCHMARKS["unk_loc_enhancement"][0]
         keys = list(grid_spec)

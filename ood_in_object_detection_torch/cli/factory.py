@@ -4,7 +4,8 @@ reference select_ood_detection_method, ood_evaluation.py:179-289)."""
 from __future__ import annotations
 
 from ..ood.methods import (DISTANCE_METHODS, DistanceOODMethod, FusionOODMethod,
-                           LOGITS_METHODS, LogitsOODMethod)
+                           LOGITS_METHODS, SDR_METHODS, LogitsOODMethod)
+from ..ood.sdr import attach_sdr_transform
 
 
 # scales reachable per family through the CLI (models/yolo.py SCALES/SPECS).
@@ -38,10 +39,14 @@ def resolve_model_name(model_version: str, scale: str) -> str:
 def build_ood_method(name: str, cluster_method: str = "one",
                      cluster_optimization_metric: str = "silhouette",
                      fusion_strategy: str = "none", temperature_energy: float = 1.0,
-                     temperature_odin: float = 1000.0, use_values_before_sigmoid: bool = True):
+                     temperature_odin: float = 1000.0, use_values_before_sigmoid: bool = True,
+                     device=None):
     """A logits, distance or fusion method from its CLI name, recursively for
     'fusion-M1-M2[-M3]' (each distance member takes the next of the
-    '-'-separated cluster methods)."""
+    '-'-separated cluster methods). An SDR method (Umap in ``umap`` mode,
+    CosineIvis, L1Ivis and L2Ivis in ``ivis`` mode) gets its embedding
+    transform, fitted on ``device`` (None: the card) at its first
+    ``generate_clusters``."""
     if name.startswith("fusion-"):
         parts = name.split("-")[1:]
         if len(parts) not in (2, 3):
@@ -52,7 +57,7 @@ def build_ood_method(name: str, cluster_method: str = "one",
         for p in parts:
             m = build_ood_method(p, cluster_methods[min(ci, len(cluster_methods) - 1)],
                                  cluster_optimization_metric, "none", temperature_energy,
-                                 temperature_odin, use_values_before_sigmoid)
+                                 temperature_odin, use_values_before_sigmoid, device)
             ci += isinstance(m, DistanceOODMethod)
             members.append(m)
         strategy = fusion_strategy if fusion_strategy != "none" else "and"
@@ -64,7 +69,10 @@ def build_ood_method(name: str, cluster_method: str = "one",
         return LogitsOODMethod(name, temper=temper,
                                use_values_before_sigmoid=use_values_before_sigmoid)
     if name in DISTANCE_METHODS:
-        return DistanceOODMethod.from_name(
+        m = DistanceOODMethod.from_name(
             name, cluster_method=cluster_method,
             cluster_optimization_metric=cluster_optimization_metric)
+        if name in SDR_METHODS:
+            attach_sdr_transform(m, kind="umap" if name == "Umap" else "ivis", device=device)
+        return m
     raise ValueError(f"unknown OoD method {name}")

@@ -321,7 +321,7 @@ def main(argv=None) -> List[Dict]:
     method = build_ood_method(
         args.ood_method, args.cluster_method, args.cluster_optimization_metric,
         args.fusion_strategy, args.temperature_energy, args.temperature_odin,
-        use_values_before_sigmoid=args.use_values_before_sigmoid)
+        use_values_before_sigmoid=args.use_values_before_sigmoid, device=detector.device)
     for m in _leaf_methods(method):
         if isinstance(m, DistanceOODMethod):
             m.ind_info_creation_option = args.ind_info_creation_option

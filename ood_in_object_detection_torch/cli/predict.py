@@ -176,7 +176,8 @@ def load_ood_method(args):
     config sidecar (*_thresholds.json, written next to the pkl) is
     authoritative for temperatures, sigmoid space and the activation tap:
     fitted thresholds hold only on the score distribution they were fitted
-    on. The SDR methods raise in the factory (ROADMAP.md A10)."""
+    on. An SDR method raises ValueError: its embedder is fitted in the
+    process and the artifacts do not hold it (JAX cli/predict.py:231-239)."""
     if not args.ood_method:
         return None
     import pickle
@@ -221,6 +222,12 @@ def load_ood_method(args):
     clusters = pickle.loads(Path(args.ood_clusters).read_bytes()) if args.ood_clusters else None
     for m in assign_fitted_state(method, thresholds=thr, clusters=clusters):
         if isinstance(m, DistanceOODMethod):
+            if m.transform_fn is not None:
+                # the pkl artifacts hold clusters in the embedded space but
+                # not the embedder: raw-feature distances to them mean nothing
+                raise ValueError(f"{m.name} uses a fitted SDR embedding that cannot be "
+                                 "restored from pkl artifacts; re-fit in-process via "
+                                 "cli.ood_eval (or serve a non-SDR method)")
             m.ind_info_creation_option = cfg["ind_info_creation_option"]
             if cfg["which_internal_activations"] in C.FTMAPS_RELATED_OPTIONS:
                 m.which_internal_activations = cfg["which_internal_activations"]

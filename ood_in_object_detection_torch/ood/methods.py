@@ -13,12 +13,15 @@ distance methods call it InD when dist < thr[cls, stride] and OoD when there
 is no cluster or no threshold (ood_utils.py:2147-2180). Clusters are one
 centroid per group (``one``) or the centroids of a host-side cluster search
 (``ood/clustering.py``); MeanShift, GMM and BGMM raise (ROADMAP.md A7c).
+The SDR methods (Umap, CosineIvis, L1Ivis, L2Ivis) carry a fitted
+per-stride embedding in ``sdr_state``, applied by ``transform_fn``
+(``ood/sdr.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +38,7 @@ from .distance import (
     pairwise_distance,
 )
 from .scores import LOGITS_METHODS, logits_score_fn, table_lookup
+from .sdr import fit_stride_embedders
 from .thresholds import (
     generate_thresholds_per_class,
     generate_thresholds_per_class_per_stride,
@@ -45,7 +49,7 @@ from .thresholds import (
 DISTANCE_METHODS = ("L1_cl_stride", "L2_cl_stride", "Cosine_cl_stride",
                     "Umap", "CosineIvis", "L1Ivis", "L2Ivis")
 OOD_METHOD_CHOICES = LOGITS_METHODS + DISTANCE_METHODS
-# the methods with a fitted embedding (SDR) are not ported yet (ROADMAP.md A10)
+# the methods with a fitted embedding (supervised dimensionality reduction)
 SDR_METHODS = ("Umap", "CosineIvis", "L1Ivis", "L2Ivis")
 
 _METRIC_OF = {"L1_cl_stride": "l1", "L2_cl_stride": "l2", "Cosine_cl_stride": "cosine",
@@ -157,6 +161,10 @@ class DistanceOODMethod:
     max_dist: Optional[np.ndarray] = None
     unk_prop_thr: Optional[float] = None
     _banks: Dict[str, CentroidBank] = dataclasses.field(default_factory=dict, repr=False)
+    # an SDR method's kind, fitting device and per-stride embedders, and its
+    # (sdr_state, acts (N, ...), cls, stride) -> (N, D) embedding (ood/sdr.py)
+    sdr_state: Optional[dict] = dataclasses.field(default=None, repr=False)
+    transform_fn: Optional[Callable] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         if self.cluster_method in UNPORTED_CLUSTERING_METHODS:
@@ -164,12 +172,16 @@ class DistanceOODMethod:
 
     @staticmethod
     def from_name(name: str, cluster_method: str = "one", **kw) -> "DistanceOODMethod":
-        if name in SDR_METHODS:
-            raise NotImplementedError(f"{name} needs the SDR embedder (ROADMAP.md A10)")
+        """The method of a distance name; an SDR name gets its transform
+        from ``ood/sdr.py:attach_sdr_transform`` (the factory attaches it)."""
         return DistanceOODMethod(name=name, metric=_METRIC_OF[name],
                                  cluster_method=cluster_method, **kw)
 
     def transform(self, acts: np.ndarray, cls_idx: int = 0, stride_idx: int = 0) -> np.ndarray:
+        """Flattened, L2-normalised rows, or the SDR embedding when one is
+        attached (JAX methods.py:236-240)."""
+        if self.transform_fn is not None:
+            return self.transform_fn(self.sdr_state, acts, cls_idx, stride_idx)
         flat = np.asarray(acts, np.float32).reshape(len(acts), -1)
         return l2_normalize_rows(torch.as_tensor(flat)).numpy()
 
@@ -179,7 +191,11 @@ class DistanceOODMethod:
         than clusters.MIN_SAMPLES samples (read at call time), the ``agg``
         (mean or median) of its transformed features: one centroid with
         ``one``, else one per label of ``fit_cluster_labels`` in sorted label
-        order, -1 skipped under REMOVE_ORPHANS (ood_utils.py:2263-2366)."""
+        order, -1 skipped under REMOVE_ORPHANS (ood_utils.py:2263-2366). An
+        SDR method fits its embedders on the first call (JAX sdr.py:148-166)."""
+        if self.sdr_state is not None and self.sdr_state["embedders"] is None:
+            self.sdr_state["embedders"] = fit_stride_embedders(
+                acts, self.sdr_state["kind"], self.sdr_state["device"])
         if min_samples is None:
             min_samples = CUSTOM_HYP.clusters.MIN_SAMPLES
         agg = np.mean if self.agg == "mean" else np.median

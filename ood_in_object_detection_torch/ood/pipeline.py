@@ -25,8 +25,11 @@ post-NMS per-box tensors (and P3 when EUL needs it) in a host-side cache on
 disk, so that a sweep over post-prediction knobs runs the forward once per
 batch (``_cached_predict``).
 
+The SDR methods' embeddings (``ood/sdr.py``) run inside
+``distance_features``, on the taps' device.
+
 Not ported yet, and each raises when asked for: the launch/consume overlap
-(it relies on JAX's asynchronous dispatch), device meshes and SDR.
+(it relies on JAX's asynchronous dispatch) and device meshes.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from .distance import (PAIRWISE_METRICS, CentroidBank, build_centroid_bank,
 from .matching import match_predictions_to_targets
 from .methods import DistanceOODMethod, FusionOODMethod, LogitsOODMethod
 from .scores import table_lookup
+from .sdr import sdr_embeddings
 from .thresholds import pack_thresholds_per_class_per_stride
 from .unknown import (eul_frontend_batched, finish_unknown_proposals, rank_distances,
                       unknown_candidates_for_image)
@@ -267,7 +271,9 @@ def distance_features(method: DistanceOODMethod, out: PredictOutput, neck_ch):
     """(B*N, Cmax) L2-normalised box features with channels beyond each
     box's stride width zeroed, plus the flat classes and levels. The
     features keep the taps' dtype, as in the JAX package (bf16 under
-    --bf16); the distance upcasts them (methods.py:distances)."""
+    --bf16); the distance upcasts them (methods.py:distances). A fitted SDR
+    method's features are its (B*N, out_dim) f32 embeddings instead
+    (``sdr.sdr_embeddings``, JAX pipeline.py:333-350)."""
     base = (out.exact_feats if method.which_internal_activations == "ftmaps_and_strides_exact_pos"
             else out.roi_feats)
     cmax = base.shape[-1]
@@ -275,7 +281,9 @@ def distance_features(method: DistanceOODMethod, out: PredictOutput, neck_ch):
     chmask = torch.arange(cmax, device=base.device)[None, None, :] < ch[..., None]
     feats = torch.where(chmask, base, torch.zeros_like(base))
     flat = l2_normalize_rows(feats.reshape(-1, cmax))
-    return flat, out.det.cls.reshape(-1), out.stride_level.reshape(-1)
+    level = out.stride_level.reshape(-1)
+    emb = sdr_embeddings(method, flat, level)
+    return (flat if emb is None else emb), out.det.cls.reshape(-1), level
 
 
 def _decisions_for_method(method, out: PredictOutput, neck_ch,
@@ -389,13 +397,17 @@ def _rank_from_matrix(mat: np.ndarray, row_cls: np.ndarray):
 def _make_rank_fn(dm: DistanceOODMethod, p3_img: torch.Tensor):
     """Per-image rank fn over one (H, W, C) map, for stride-0 clusters that
     ``_stride0_rank_bank`` refuses (none at all gives zeros): proposals in
-    padded-ftmap cells -> 1x1 RoIAlign on the map -> L2-normalised ->
+    padded-ftmap cells -> 1x1 RoIAlign on the map -> L2-normalised (an SDR
+    method: its transform, on the host, JAX pipeline.py:607-608) ->
     distance to each class's stride-0 clusters -> ``_rank_from_matrix``."""
     def fn(props_ftmap: np.ndarray):
         boxes = torch.as_tensor(np.asarray(props_ftmap, np.float32), device=p3_img.device)
         feats = roi_align_1x1_batched_level(p3_img.float().contiguous()[None], boxes[None],
                                             1.0, samples=4)[0]
-        tf = l2_normalize_rows(feats)
+        if dm.transform_fn is not None:  # the same for every class: stride 0's embedder
+            tf = torch.as_tensor(dm.transform(_np(feats), 0, 0), device=feats.device)
+        else:
+            tf = l2_normalize_rows(feats)
         rows, row_cls = [], []
         for c, per_cls in enumerate(dm.clusters):
             cl = per_cls[0]
@@ -413,9 +425,9 @@ def _make_rank_fn(dm: DistanceOODMethod, p3_img: torch.Tensor):
 def _stride0_rank_bank(dm: DistanceOODMethod, p3_channels: int, device):
     """(the classes' stride-0 centroids as a one-stride bank on ``device``,
     the valid class ids as a tensor there) for the batched rank, or None
-    when the method's stride-0 clusters cannot feed it (none, or a width
-    other than P3's channel count)."""
-    if dm.metric not in PAIRWISE_METRICS:
+    when the method's stride-0 clusters cannot feed it (none, an SDR
+    transform, or a width other than P3's channel count)."""
+    if dm.transform_fn is not None or dm.metric not in PAIRWISE_METRICS:
         return None
     rows = [c for c, per_cls in enumerate(dm.clusters)
             if isinstance(per_cls[0], np.ndarray) and per_cls[0].ndim == 2 and per_cls[0].size]

@@ -33,6 +33,21 @@ def load_jax_variables(model: nn.Module, state_dict: Dict[str, np.ndarray]) -> n
     return model
 
 
+def sdr_params_from_jax(params: List[Mapping[str, np.ndarray]], device="cpu"):
+    """An ``ood/sdr.py:TripletEmbedder`` holding the JAX package's SDR MLP
+    parameters, ``[{"w": (in, out), "b": (out,)}, ...]`` as numpy arrays:
+    ``w`` is transposed into ``Linear.weight`` (out, in)."""
+    from ..ood.sdr import TripletEmbedder
+
+    widths = [int(np.shape(params[0]["w"])[0])] + [int(np.shape(p["w"])[1]) for p in params]
+    emb = TripletEmbedder(widths)
+    with torch.no_grad():
+        for layer, p in zip(emb.layers, params):
+            layer.weight.copy_(torch.as_tensor(np.asarray(p["w"], np.float32).T))
+            layer.bias.copy_(torch.as_tensor(np.asarray(p["b"], np.float32)))
+    return emb.to(device).eval()
+
+
 def class_count(state_dict: Mapping) -> int:
     """The class count of a detector's state_dict: the length of the class
     tower's last bias, ``cv3.0.2.bias`` (the JAX predict CLI's reading,

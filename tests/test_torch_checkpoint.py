@@ -26,18 +26,9 @@ from ood_in_object_detection_torch.engine import Detector
 from ood_in_object_detection_torch.models import build_model
 from ood_in_object_detection_torch.utils import weights as W
 from test_torch_pipeline import _cli_args, fx  # noqa: F401 (the shared fixture)
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 RUN = "fxrun"  # the checkpoints' directory stem, which keys the caches
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for this module: tier-1 runs six workers on the
-    CPU, each with a thread per core by default."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def convert_jax_checkpoint(jax_dir, out_dir) -> None:

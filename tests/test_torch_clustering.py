@@ -27,6 +27,7 @@ from ood_in_object_detection_torch.ood import clustering as tcl
 from ood_in_object_detection_torch.ood import hdbscan as thd
 from ood_in_object_detection_torch.ood import kmeans as tkm
 from ood_in_object_detection_torch.ood import methods as tmethods
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 GRID = [m for m in JC.BENCHMARKS["cluster_methods"] if m != "one"]
 METRICS = ["l1", "l2", "cosine"]

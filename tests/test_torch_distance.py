@@ -127,8 +127,9 @@ def test_unported_cluster_methods_raise():
     # the sweep grid's cluster methods are ported; GMM is not (A7c)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
         tmethods.DistanceOODMethod.from_name("L2_cl_stride", cluster_method="GMM")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmethods.DistanceOODMethod.from_name("Umap")
+    # an SDR name builds (its embedding is ported) and refuses BGMM (A7c) alike
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
+        tmethods.DistanceOODMethod.from_name("Umap", cluster_method="BGMM")
 
 
 # K3's schedule (csrc/min_group_distance.cu), emulated in plain torch: row

@@ -26,6 +26,7 @@ from ood_in_object_detection_torch.ops.boxes import box_iou
 from ood_in_object_detection_torch.ops.fused_detect import select_candidates
 from test_torch_pipeline import _flat, _label_from_detections, _methods, _write_images
 from test_torch_zoo import zoo_weights
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 IMG, NC, IOU = 96, 2, 0.7
 KNOWN, NAMES = [0, 1], ["c0", "c1", "unknown"]

@@ -6,6 +6,7 @@ import pytest
 from test_torch_families_eval import (FIXTURES, make_fixture,  # noqa: F401
                                       test_extract_fit_evaluate_match_jax,
                                       test_fixture_is_non_degenerate, test_predict_matches_jax)
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

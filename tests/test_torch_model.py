@@ -22,6 +22,7 @@ from ood_in_object_detection_tpu.utils.weight_import import export_state_dict, i
 from ood_in_object_detection_torch.models import build_model
 from ood_in_object_detection_torch.utils.weights import (calibrate_batchnorm, load_jax_variables,
                                                          numpy_state_dict, spread_detect_head)
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 IMG = 96
 

@@ -17,6 +17,7 @@ from ood_in_object_detection_tpu.models import layers as JL
 from ood_in_object_detection_torch.models import build_model
 from ood_in_object_detection_torch.models import layers as TL
 from test_torch_zoo import DTYPES, IMG, assert_forward_matches, assert_layer_matches, zoo_weights
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 LAYERS = {
     "SCDown": (functools.partial(JL.SCDown, 48, 3, 2), lambda: TL.SCDown(32, 48, 3, 2),

@@ -18,6 +18,7 @@ import pytest
 from ood_in_object_detection_tpu.models import layers as JL
 from ood_in_object_detection_torch.models import layers as TL
 from test_torch_zoo import DTYPES, IMG, assert_forward_matches, assert_layer_matches, zoo_weights
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 # name -> (JAX partial without dtype, port layer factory, input NHWC shape)
 LAYERS = {

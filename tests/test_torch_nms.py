@@ -22,6 +22,7 @@ from ood_in_object_detection_torch.models.head import decode_detections
 from ood_in_object_detection_torch.ops import fused_detect as tfd
 from ood_in_object_detection_torch.ops import nms as tnms
 from ood_in_object_detection_torch.ops.boxes import box_iou
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 # ops/__init__.py re-exports the function under the module's name
 jfd = importlib.import_module("ood_in_object_detection_tpu.ops.fused_detect")

@@ -29,6 +29,7 @@ from ood_in_object_detection_torch.ops.boxes import box_iou
 from ood_in_object_detection_torch.ops.fused_detect import select_candidates
 from test_torch_model import shared_weights
 from test_torch_unknown import _both_hyp
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 IMG, NC, IOU = 96, 2, 0.7
 KNOWN, NAMES = [0, 1], ["c0", "c1", "unknown"]
@@ -397,7 +398,7 @@ def test_fusion_matches_jax(fx, strategy):
     assert tres == jres
 
 
-@pytest.mark.parametrize("flag", [["--benchmark", "best_methods"],
+@pytest.mark.parametrize("flag", [["--export_bundle", "bundle"],
                                   ["--data_parallel"], ["--cluster_method", "GMM"]])
 def test_cli_unported_flags_raise(flag):
     from ood_in_object_detection_torch.cli import ood_eval

@@ -15,6 +15,7 @@ from ood_in_object_detection_torch.ood import pipeline as tpipe
 from test_torch_pipeline import (CONF_TEST, CONF_TRAIN, KNOWN, NAMES, _cli_args,  # noqa: F401
                                  cos_acts, fx)
 from test_torch_unknown import _both_hyp
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 
 CLUSTER_GRID = ["one", "all", "DBSCAN", "KMeans", "KMeans_3", "KMeans_5", "KMeans_10",
@@ -90,12 +91,14 @@ def _run_both_sweeps(fx, tmp_path, monkeypatch, argv, grids, seed_acts=True):
                 return predict(images, conf_thres=conf_thres, **kw)
 
             monkeypatch.setattr(det, "predict", counting)
-            if seed_acts:
-                (src,) = (tmp_path / "jax" / "storage").glob("*_activations.pkl")
+            if seed_acts:  # the JAX CLI's logits and/or distance activations
                 targs = cli.build_parser().parse_args(args)
-                method = tpipe._leaf_methods(tbench.build_ood_method(
-                    targs.ood_method, targs.cluster_method))[0]
-                tcli.cache_paths(targs, method)["activations"].write_bytes(src.read_bytes())
+                srcs = sorted((tmp_path / "jax" / "storage").glob("*_activations.pkl"))
+                assert srcs
+                for src in srcs:
+                    kind = "MSP" if src.name.startswith("logits") else "Cosine_cl_stride"
+                    method = tbench.build_ood_method(kind, targs.cluster_method)
+                    tcli.cache_paths(targs, method)["activations"].write_bytes(src.read_bytes())
                 args.append("--load_ind_activations")
         cli.main(args)
     return rows["torch"], rows["jax"], forwards["n"]
@@ -126,6 +129,71 @@ def test_cli_benchmark_cluster_methods_matches_jax(fx, tmp_path, monkeypatch):
     _assert_rows_equal(trows, jrows, len(CLUSTER_GRID))
     assert [r["cluster_method"] for r in trows] == CLUSTER_GRID
     assert len({r["mean_n_clus"] for r in trows}) > 2, "the clusterers all fitted alike"
+
+
+def _assert_sdr_rows(trows, jrows):
+    """Rows of methods with an SDR member, whose embedders start from each
+    package's own random init: the same keys, the same non-float common
+    columns (method, strategy, thresholds' settings), every OWOD column
+    finite in both."""
+    from ood_in_object_detection_torch import constants as TC
+    from ood_in_object_detection_torch.eval.results_writer import dataset_result_columns
+
+    assert trows and len(trows) == len(jrows)
+    for t, j in zip(trows, jrows):
+        assert set(t) == set(j)
+        for c in dataset_result_columns("coco_ood"):
+            assert np.isfinite(t[c]) and np.isfinite(j[c]), c
+        for c in TC.COMMON_COLUMNS:  # the fitted groups' counts do not depend on the init
+            if isinstance(j[c], float):
+                np.testing.assert_allclose(t[c], j[c], rtol=1e-6, err_msg=c)
+            else:
+                assert t[c] == j[c], c
+
+
+# the best_methods grid cut to a distance method without an embedder and
+# the paper's SDR method (tests/test_torch_sdr.py holds all four SDR
+# methods against the JAX package; the card's smoke run sweeps the grid)
+BEST_GRID = ["L2_cl_stride", "CosineIvis"]
+# the fusion_strategies grid cut to its fusion without an SDR member and
+# the one of two distance members, under every strategy
+FUSION_GRID = [["fusion-MSP-Sigmoid", "fusion-CosineIvis-Cosine_cl_stride"],
+               ["and", "or", "score"]]
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_cli_benchmark_best_methods_matches_jax(fx, tmp_path, monkeypatch):
+    """--benchmark best_methods (a full fit per method, on the JAX CLI's
+    InD activations): L2_cl_stride's row equals the JAX CLI's; the SDR row
+    is present, finite and keyed alike; the SDR embedders were fitted on
+    the CPU, the detector's device."""
+    from ood_in_object_detection_torch.ood import sdr as tsdr
+
+    fits = []
+    fit = tsdr.fit_triplet_embedder
+    monkeypatch.setattr(tsdr, "fit_triplet_embedder",
+                        lambda *a, **kw: fits.append(kw["device"]) or fit(*a, **kw))
+    trows, jrows, _ = _run_both_sweeps(fx, tmp_path, monkeypatch, [
+        "--ood_method", "MSP", "--benchmark", "best_methods"], {"best_methods": BEST_GRID})
+    assert [r["Method"] for r in trows] == [r["Method"] for r in jrows] == BEST_GRID
+    _assert_rows_equal(trows[:1], jrows[:1], 1)
+    _assert_sdr_rows(trows[1:], jrows[1:])
+    assert len(fits) >= 2 and {str(d) for d in fits} == {"cpu"}
+
+
+def test_cli_benchmark_fusion_strategies_matches_jax(fx, tmp_path, monkeypatch):
+    """--benchmark fusion_strategies on FUSION_GRID (each fusion fitted once
+    and evaluated under and, or, score): fusion-MSP-Sigmoid's three rows
+    equal the JAX CLI's, the three SDR rows are present, finite and keyed
+    alike."""
+    fusion_names, strategies = FUSION_GRID
+    trows, jrows, _ = _run_both_sweeps(fx, tmp_path, monkeypatch, [
+        "--ood_method", "MSP", "--benchmark", "fusion_strategies"],
+        {"fusion_strategies": FUSION_GRID}, seed_acts=False)
+    assert [(r["Method"], r["fusion_strat"]) for r in trows] == \
+        [(f, s) for f in fusion_names for s in strategies]
+    _assert_rows_equal(trows[:3], jrows[:3], 3)
+    _assert_sdr_rows(trows[3:], jrows[3:])
 
 
 @pytest.mark.usefixtures("one_thread")

@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from ood_in_object_detection_torch.cli import predict as tpredict
-from test_torch_checkpoint import _two_threads, ckpts  # noqa: F401 (module fixtures)
+from test_torch_checkpoint import ckpts  # noqa: F401 (module fixture)
 from test_torch_pipeline import CONF_TEST, IMG, _cli_args, fx  # noqa: F401
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 METHOD = "Cosine_cl_stride"
 
@@ -157,13 +158,14 @@ def test_predict_load_ood_method_sidecar_config(tmp_path):
 
 
 def test_predict_refuses_sdr_and_unported_flags(tmp_path):
-    """SDR methods wait on the embedder (A10); --data_parallel on A12;
-    --compile_cache has no counterpart."""
+    """An SDR method's embedder is fitted in the process and no artifact
+    holds it: ValueError, as the JAX CLI raises; --data_parallel waits on
+    A12; --compile_cache has no counterpart."""
     thr = tmp_path / "s_thresholds.pkl"
     thr.write_bytes(pickle.dumps([[[0.5] * 3] * 2]))
     args = tpredict.build_parser().parse_args(
         ["--source", "x", "--ood_method", "CosineIvis", "--ood_thresholds", str(thr)])
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="SDR embedding"):
         tpredict.load_ood_method(args)
     for flag, item in ((["--data_parallel"], "A12"), (["--compile_cache", "c"], "compiles")):
         with pytest.raises(NotImplementedError, match=item):

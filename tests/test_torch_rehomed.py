@@ -205,3 +205,41 @@ def test_dbcv_matches_jax(metric):
     labels[::11] = -1
     assert tdbcv.validity_index(x, labels, metric=metric, d=6) == \
         jdbcv.validity_index(x, labels, metric=metric, d=6)
+
+
+@pytest.mark.parametrize("rel", ["data/oak_sos.py", "data/owod_tools.py", "utils/log.py"])
+def test_tool_modules_are_the_jax_modules(rel):
+    """data/oak_sos.py, data/owod_tools.py and utils/log.py are the JAX
+    package's modules, unchanged."""
+    from pathlib import Path
+
+    import ood_in_object_detection_torch as T
+    import ood_in_object_detection_tpu as J
+
+    assert (Path(T.__file__).parent / rel).read_text() == (Path(J.__file__).parent / rel).read_text()
+
+
+def test_oak_sos_and_owod_tools_match_jax(tmp_path):
+    """The copies give the JAX modules' outputs: OAK annotation lines, an SOS
+    mask's box, a split list and a task-stem list written alike."""
+    from ood_in_object_detection_torch.data import oak_sos as toak, owod_tools as towod_t
+    from ood_in_object_detection_tpu.data import oak_sos as joak, owod_tools as jowod_t
+
+    anns = [{"id": 0, "category": "a", "box2d": {"x1": 10, "y1": 20, "x2": 30, "y2": 60}},
+            {"id": 2, "category": "b", "box2d": {"x1": 1, "y1": 2, "x2": 40, "y2": 9}},
+            {"id": 5, "category": "c", "box2d": {"x1": 0, "y1": 0, "x2": 10, "y2": 10}}]
+    assert toak.oak_annotations_to_yolo_lines(anns, 3, 100, 80) == \
+        joak.oak_annotations_to_yolo_lines(anns, 3, 100, 80)
+    seg = np.zeros((40, 50), np.uint8)
+    seg[5:17, 8:30] = 3
+    assert toak.segmentation_to_bbox(seg, 3) == joak.segmentation_to_bbox(seg, 3)
+    imgs = tmp_path / "imgs"
+    (imgs / "sub").mkdir(parents=True)
+    for name in ("a.jpg", "sub/b.png", "c.txt"):
+        (imgs / name).write_bytes(b"x")
+    for key, mod in (("t", towod_t), ("j", jowod_t)):
+        assert mod.write_split_txt([str(imgs)], str(tmp_path / key / "split.txt"),
+                                   relative_to=str(tmp_path)) == 2
+        assert mod.write_task_stems_txt(["x1", "x2"], str(tmp_path / key / "stems.txt")) == 2
+    for name in ("split.txt", "stems.txt"):
+        assert (tmp_path / "t" / name).read_text() == (tmp_path / "j" / name).read_text()

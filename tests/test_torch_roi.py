@@ -21,6 +21,7 @@ from _reference_bridge import tv_roi_align
 import ood_in_object_detection_tpu.ops.pallas.roi as proi
 from ood_in_object_detection_tpu.ops import roi_align as jroi
 from ood_in_object_detection_torch.ops import roi_align as troi
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 
 def _weights(rng, b, n2, h, w):

@@ -24,7 +24,7 @@ from ood_in_object_detection_torch.ood.pipeline import _decisions_for_method
 from ood_in_object_detection_torch.serving import MicroBatchServer
 from ood_in_object_detection_torch.utils.weights import (calibrate_batchnorm, load_jax_variables,
                                                          numpy_state_dict, spread_detect_head)
-from test_torch_checkpoint import _two_threads  # noqa: F401 (autouse)
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 IMG, NC, CONF = 64, 4, 0.25
 

@@ -27,6 +27,7 @@ from ood_in_object_detection_torch.models import build_model, init_weights
 from ood_in_object_detection_torch.ops import stem as S
 from ood_in_object_detection_torch.utils.weights import calibrate_batchnorm
 from test_torch_kernels_cuda import k4_contract, stem_convs
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 
 def _params(seed, c1, c2):

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ood_in_object_detection_torch.ops import stem_parts as SP
 from ood_in_object_detection_torch.scripts import bench_stem_parts as BSP
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
 SCRIPT = {1: "bench_stem_parts", 2: "bench_stem_parts2", 3: "bench_stem_parts3",

@@ -32,6 +32,7 @@ from ood_in_object_detection_torch.ood import methods as tmethods
 from ood_in_object_detection_torch.ood import pipeline as tpipe
 from ood_in_object_detection_torch.ood import unknown as tunk
 from ood_in_object_detection_torch.ood import unknown_device as tdev
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 SUMMARIZERS = sorted(tdev.DEVICE_SUMMARIZERS)
 FE_TOL = 2e-6  # of the saliency's largest magnitude

@@ -29,6 +29,7 @@ from ood_in_object_detection_torch.models import yolo as tyolo
 from ood_in_object_detection_torch.ops import stem as tstem
 from ood_in_object_detection_torch.utils.weights import (calibrate_batchnorm, load_jax_variables,
                                                          numpy_state_dict, spread_detect_head)
+from torch_threads import _two_threads  # noqa: F401 (autouse)
 
 ALL_NAMES = sorted({f"{fam}{size}" for fam, sizes in jyolo.SCALES.items() for size in sizes})
 IMG = 64
