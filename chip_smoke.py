@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port's main paths on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --reference-seeds 4   # the readings of REF_LIMITS
+    python3 chip_smoke.py --reference-seeds 4   # the readings of REF_LIMITS (and the rest)
+    python3 chip_smoke.py --only e2e_train      # the training phase alone
 
 Phases, each printing one JSON line (a failure anywhere raises, and the
 script exits non-zero without printing a result):
@@ -113,7 +114,8 @@ script exits non-zero without printing a result):
    ``cluster_banks``: its numbers at the sweep's fitted banks. Launch
    counts add up every main path's run (e2e, e2e_eul, e2e_sweeps, e2e_serve,
    e2e_bf16); e2e_sdr's entry carries its own;
-   e2e_families' entries carry their own model's counts.
+   e2e_families' entries carry their own model's counts, e2e_train's those
+   of its last validation.
 12. e2e_families (the other YOLO families on the f32 path): yolov9c,
    yolov10l, yolo11l and yolo12l (the l models of the paper's V9-V12
    results) at 640 px, nc=20, batch 8, TF32 off, seeded, BatchNorm
@@ -135,7 +137,29 @@ script exits non-zero without printing a result):
    and in bf16 with the counters reset just before and read just after (K4
    once each), then K4 against its plain version on that stem, kernel
    entries tagged ``model: yolo11x``.
-14. stem_parts (the stem probe ladder's path): the ladder entry point
+14. e2e_train (training and its validation): TRAIN_IMAGES + VAL_IMAGES
+   seeded scenes labelled by e2e's detector as a dataset with train and val
+   splits, and e2e's weights saved as a training state at epoch -1 (a
+   start that ``--resume`` takes at epoch 0). cli.train at yolov8l, 640 px,
+   nc 20, TF32 off, batch 16, mosaic, HSV and flip, 2 epochs, validation
+   every epoch with the counters reset just before and read just after
+   each ``validate`` (K4, K1 and K2 must launch; mAP50 and mAP50-95
+   finite): images/s per epoch (host clock), validation seconds. cli.val on
+   the last checkpoint: its --out equal to validate's numbers. Resume: a
+   run from the epoch-0 checkpoint continues at epoch 1, its first step's
+   loss that of the uninterrupted run (letterboxed batches in order).
+   K1 and K2 on validation's own tensors (conf 0.001), entries tagged
+   ``case: val_conf0.001`` (K1 with valid candidates per image). A train
+   step at batch 16 in f32, f32 with remat and bf16: CUDA-event ms, peak
+   memory, f32's device time by op (torch.profiler). 25 steps on one fixed
+   batch of 8 in f32 and bf16 (tests/test_train.py's overfit check: the
+   last loss below OVERFIT_RATIO x the first, the EMA moved). One f32 step
+   at batch 2 on the card against the CPU from the same weights within
+   TRAIN_REF_LIMITS (``--reference-seeds`` takes their readings,
+   train_spread). yolov10l: the one2one loss alone leaves the backbone and
+   neck with zero gradient on the card; 2 dual-loss steps at batch 8, finite.
+   ``python3 chip_smoke.py --only e2e_train`` runs this phase alone.
+15. stem_parts (the stem probe ladder's path): the ladder entry point
    (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
    driven through all four ladders at full size, z (128, 160(+2), 160, 48)
    bf16, with the counters reset just before and read just after; the
@@ -2375,6 +2399,470 @@ def phase_e2e_families(torch) -> list:
     return entries
 
 
+# training and its validation (e2e_train): a seeded scenes dataset labelled
+# by e2e's detector, yolov8l trained through cli.train at 640 px
+TRAIN_IMAGES, VAL_IMAGES = 64, 16
+TRAIN_BATCH = 16
+TRAIN_EPOCHS = 2
+OVERFIT_STEPS, OVERFIT_BATCH = 25, 8
+# the overfit check's bound on last / first loss. tests/test_train.py holds
+# yolov8n at 96 px to 0.6; at yolov8l, 640 px, its batch and schedule read
+# 0.622-0.644 (f32) and 0.633 (bf16) on the H100 (the curve still falls ~1 %
+# a step: the warmup keeps the weights' LR under 2.5e-3 for these 25
+# steps), while yolov8n at 640 px reads 0.270 in the port and 0.237 in JAX
+# on the CPU (PERF.md section 6)
+OVERFIT_RATIO = 0.7
+V10_MODEL, V10_STEPS = "yolov10l", 2
+# one f32 train step at batch TRAIN_REF_BATCH on the card against the CPU,
+# from the same weights (seeded) and batch: the loss terms (relative) and
+# the update p1 - p0 of all trained tensors together (L2 of card - CPU over
+# L2 of the CPU's; each tensor's own is printed: it reads up to ~8e-3 in
+# the few whose gradients cancel). Set from `python3 chip_smoke.py
+# --reference-seeds 4` (train_spread: seeds 0-3, sound, with the card's LR
+# scaled by 1 + TRAIN_REF_FAULT, and with TF32 on for the card's step;
+# PERF.md section 5): sound at most 6.3e-5 (loss) and 8.9e-4 (update),
+# the limits ~4.5x above; TF32 moves the update by 0.18-0.56. An LR off by
+# 1e-3 (0.88-1.29e-3) does not stand out of one step's noise.
+TRAIN_REF_BATCH = 2
+TRAIN_REF_FAULT = 1e-3
+TRAIN_REF_LIMITS = {"loss_rel": 3e-4, "update_rel": 4e-3}
+VAL_CONF = 0.001  # the validator's (cli/train.py:validate)
+
+
+def write_train_dataset(torch, det, root):
+    """TRAIN_IMAGES + VAL_IMAGES seeded scenes labelled by ``det`` (its own
+    detections at CONF, up to 20 an image) as one dataset with train and
+    val splits; -> the yaml."""
+    rng = np.random.default_rng(SEED + 13)
+    train = label_batches(det, make_scenes(rng, TRAIN_IMAGES // BATCH))
+    val = label_batches(det, make_scenes(rng, VAL_IMAGES // BATCH))
+    for b in val:
+        b["im_names"] = ["v" + n for n in b["im_names"]]
+    write_dataset(root, train + val)
+    lines = (root / "split.txt").read_text().splitlines()
+    (root / "train.txt").write_text("\n".join(lines[:TRAIN_IMAGES]) + "\n")
+    (root / "val.txt").write_text("\n".join(lines[TRAIN_IMAGES:]) + "\n")
+    (root / "train.yaml").write_text(
+        "path: .\ntrain: train.txt\nval: val.txt\nnames:\n"
+        + "".join(f"  {k}: c{k}\n" for k in range(NC)))
+    return root / "train.yaml"
+
+
+def cli_device() -> str:
+    return "cpu" if DEVICE == "cpu" else "0"
+
+
+START_CLS_SCALE = 0.5
+
+
+def start_checkpoint(torch, det, path) -> None:
+    """``det``'s weights (BatchNorm calibrated, head spread) as a training
+    state at epoch -1, which ``cli.train --resume`` starts at epoch 0 (the
+    way a JAX checkpoint's weights start a port training run, README.md),
+    the head's biases back at their init and its class weights scaled by
+    START_CLS_SCALE: background confidences of ~e^-8 with a tail above
+    0.001, so that validation's conf 0.001 fills each image's 1024
+    candidates, as a trained network's does, while the reference's warmup
+    bias LR (0.1) does not drive the class biases off (from the spread
+    head's confidences of ~0.5 everywhere it did: the class loss rose
+    from 2.8e3 to 4.9e5 in two epochs)."""
+    from ood_in_object_detection_torch.core.checkpoint import save_checkpoint
+    from ood_in_object_detection_torch.models import build_model
+    from ood_in_object_detection_torch.train import trainer as TTR
+
+    m = build_model(MODEL, nc=NC)
+    m.load_state_dict({k: v.cpu() for k, v in det.model.state_dict().items()})
+    head = m.model[m.detect_layer_idx]
+    head.bias_init()
+    with torch.no_grad():
+        for cls in head.cv3:
+            cls[-1].weight.mul_(START_CLS_SCALE)
+    save_checkpoint(path, TTR.init_state(m, TTR.TrainConfig()), {"name": "start", "nc": NC},
+                    MODEL, epoch=-1)
+
+
+def train_cli_args(yaml, out_dir, name, *extra):
+    return ["--dataset", str(yaml), "--model_version", MODEL[:-1], "--model", MODEL[-1],
+            "--img_size", str(IMG), "--batch_size", str(TRAIN_BATCH), "--workers", "4",
+            "--epochs", str(TRAIN_EPOCHS), "--val_every", "1", "--max_gt", "20",
+            "--device", cli_device(), "--out_dir", str(out_dir), "--name", name,
+            "--no_tensorboard", *extra]
+
+
+def seeded_model(torch, name, dtype=None, seed=SEED):
+    """``name`` seeded on the card (f32 parameters, ``dtype`` compute)."""
+    from ood_in_object_detection_torch.models import build_model, init_weights
+
+    m = build_model(name, nc=NC, dtype=dtype or torch.float32)
+    init_weights(m, torch.Generator().manual_seed(seed))
+    return m.to(DEVICE)
+
+
+def step_readings(torch, batch, dtype=None, remat=False, steps=10, profile=False) -> dict:
+    """A fresh seeded yolov8l's train step on a device ``batch``: CUDA-event
+    ms (mean of ``steps`` after 2 warm-up), peak memory, the last loss, and
+    with ``profile`` the device time by op (torch.profiler, 2 steps)."""
+    from ood_in_object_detection_torch.train import trainer as TTR
+
+    model = seeded_model(torch, MODEL, dtype)
+    cfg = TTR.TrainConfig(remat=remat)  # the CLI's schedule: these steps are in its warmup
+    state = TTR.init_state(model, cfg)
+    last = {}
+
+    def step():
+        last["lb"] = TTR.train_step(model, cfg, state, batch)[1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, reps=steps, warmup=2)
+    out = dict(dtype=str(dtype or torch.float32).replace("torch.", ""), remat=remat,
+               batch=int(batch["images"].shape[0]), step_ms=ms,
+               images_per_s=batch["images"].shape[0] * 1000.0 / ms,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               loss={k: float(getattr(last["lb"], k)) for k in ("total", "box", "cls", "dfl")})
+    if not all(np.isfinite(v) for v in out["loss"].values()):
+        raise AssertionError(f"train step: non-finite loss {out}")
+    if profile:
+        rows, host = profile_rows(torch, step, steps=2)
+        device_us = sum(r[0] for r in rows)
+        out.update(kernels_per_step=sum(r[2] for r in rows),
+                   device_ms_per_step=device_us / 1000.0 if rows else "not measured",
+                   device_busy_share=device_us / (ms * 1000.0) if rows else "not measured",
+                   top=[{"name": k[:90], "us_per_step": t, "calls_per_step": c}
+                        for t, k, c in rows[:15]],
+                   host_top=[{"name": k[:60], "host_us_per_step": t} for t, k, _ in host[:8]])
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def overfit_batch(b: int) -> dict:
+    """tests/test_train.py's fixed batch at IMG: seeded uniform noise images
+    in [0, 1] and its two boxes an image (96 px there) scaled to IMG, the
+    two images' patterns alternating."""
+    boxes = np.array([[[10, 10, 50, 50], [60, 20, 90, 80]],
+                      [[20, 30, 70, 90], [5, 5, 40, 40]]], np.float32) * (IMG / 96)
+    labels = np.array([[0, 1], [1, 0]], np.int32)
+    images = np.random.default_rng(SEED + 17).uniform(0, 1, (b, IMG, IMG, 3)).astype(np.float32)
+    return dict(images=images, gt_bboxes=boxes[np.arange(b) % 2],
+                gt_labels=labels[np.arange(b) % 2], gt_mask=np.ones((b, 2), bool))
+
+
+def overfit_reading(torch, batch, dtype=None) -> dict:
+    """tests/test_train.py:106-136 at full width: OVERFIT_STEPS steps of a
+    fresh seeded yolov8l on one fixed batch (the JAX test's config); ``ok``
+    where the last loss is below OVERFIT_RATIO x the first and the EMA moved
+    off the init."""
+    from ood_in_object_detection_torch.train import trainer as TTR
+
+    model = seeded_model(torch, MODEL, dtype)
+    cfg = TTR.TrainConfig(lr0=0.01, epochs=100, steps_per_epoch=1, warmup_epochs=0.1)
+    state = TTR.init_state(model, cfg)
+    ema0 = {k: v.clone() for k, v in state.ema.items()}
+    losses = [float(TTR.train_step(model, cfg, state, batch)[1].total)
+              for _ in range(OVERFIT_STEPS)]
+    ema_moved = max(float((state.ema[k] - ema0[k]).abs().max()) for k in ema0)
+    out = dict(dtype=str(dtype or torch.float32).replace("torch.", ""), steps=OVERFIT_STEPS,
+               batch=int(batch["images"].shape[0]), first_loss=losses[0], last_loss=losses[-1],
+               ratio=losses[-1] / losses[0], losses=losses, ema_max_move=ema_moved,
+               ok=bool(np.isfinite(losses).all() and losses[-1] < OVERFIT_RATIO * losses[0]
+                       and ema_moved > 0))
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_reference_batch(seed: int):
+    """TRAIN_REF_BATCH seeded scenes with 3 seeded boxes each (host)."""
+    rng = np.random.default_rng(SEED + 2000 + seed)
+    images = make_scenes(rng, 1)[0][:TRAIN_REF_BATCH].astype(np.float32) / 255.0
+    xy = rng.uniform(0, 0.65 * IMG, (TRAIN_REF_BATCH, 3, 2))
+    wh = rng.uniform(IMG / 16, IMG / 3, (TRAIN_REF_BATCH, 3, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    return dict(images=images, gt_bboxes=boxes,
+                gt_labels=rng.integers(0, NC, (TRAIN_REF_BATCH, 3)).astype(np.int32),
+                gt_mask=np.ones((TRAIN_REF_BATCH, 3), bool))
+
+
+def train_reference_reading(torch, seed: int = 0, fault: str = "") -> dict:
+    """One f32 train step of seeded yolov8l on the card and on the CPU from
+    the same weights and batch; ``fault`` "lr" scales the card's LR by 1 +
+    TRAIN_REF_FAULT, "tf32" lets the card's matmuls and convolutions take
+    TF32. -> the loss terms' largest relative error, the update's relative
+    L2 error over all trained tensors, and the worst tensor's own."""
+    import copy
+
+    from ood_in_object_detection_torch.train import trainer as TTR
+
+    gpu = seeded_model(torch, MODEL, seed=SEED + 1000 * seed)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    p0 = {n: p.detach().cpu().clone() for n, p in cpu.named_parameters()}
+    batch = train_reference_batch(seed)
+    losses = {}
+    for key, m, lr in (("cuda", gpu, 0.01 * (1 + (TRAIN_REF_FAULT if fault == "lr" else 0.0))),
+                       ("cpu", cpu, 0.01)):
+        cfg = TTR.TrainConfig(lr0=lr, warmup_epochs=0.0)
+        tf32 = key == "cuda" and fault == "tf32"
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        try:
+            losses[key] = TTR.train_step(m, cfg, TTR.init_state(m, cfg), batch)[1]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        losses[key + "_s"] = time.perf_counter() - t0
+    loss_rel = max(abs(float(getattr(losses["cuda"], k)) - float(getattr(losses["cpu"], k)))
+                   / abs(float(getattr(losses["cpu"], k))) for k in ("total", "box", "cls", "dfl"))
+    num = den = worst = 0.0
+    worst_name, moved = "", 0
+    g = dict(gpu.named_parameters())
+    for n, p in cpu.named_parameters():
+        u_cpu = (p.detach() - p0[n]).double()
+        d = ((g[n].detach().cpu() - p0[n]).double() - u_cpu).norm() ** 2
+        scale = u_cpu.norm() ** 2
+        if scale == 0:
+            continue
+        moved += 1
+        num, den = num + float(d), den + float(scale)
+        if float(d / scale) > worst:
+            worst, worst_name = float(d / scale), n
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return dict(seed=seed, fault=fault or None, loss_rel=loss_rel, update_rel=(num / den) ** 0.5,
+                worst_tensor=worst_name, worst_tensor_rel=worst ** 0.5, tensors_moved=moved,
+                loss_cuda=float(losses["cuda"].total), loss_cpu=float(losses["cpu"].total),
+                cpu_step_s=losses["cpu_s"])
+
+
+def train_spread(torch, n_seeds: int) -> None:
+    """The readings TRAIN_REF_LIMITS stand on: n_seeds seeds, sound, with the
+    card's LR scaled by 1 + TRAIN_REF_FAULT and with TF32 on the card.
+    Asserts nothing."""
+    worst = {}
+    for s in range(n_seeds):
+        for fault in ("", "lr", "tf32"):
+            r = train_reference_reading(torch, s, fault)
+            emit("train_reference_reading", **r)
+            w = worst.setdefault(fault or "sound", dict(loss_rel=[], update_rel=[]))
+            w["loss_rel"].append(r["loss_rel"])
+            w["update_rel"].append(r["update_rel"])
+    emit("train_spread", seeds=n_seeds, lr_fault=TRAIN_REF_FAULT,
+         sound_worst={k: max(v) for k, v in worst["sound"].items()},
+         fault_least={f: {k: min(v) for k, v in worst[f].items()} for f in ("lr", "tf32")},
+         limits=TRAIN_REF_LIMITS)
+
+
+def val_candidates(torch, det, images):
+    """The NMS inputs of validation's predict step (conf VAL_CONF) on float
+    images (B, H, W, 3) in [0, 1]."""
+    from ood_in_object_detection_torch.ops import nms as N
+    from ood_in_object_detection_torch.ops.fused_detect import select_candidates
+
+    x = torch.from_numpy(images).to(DEVICE).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        raw = det.model(x)[0]
+    cand = select_candidates(raw, det.nc, VAL_CONF, pre_nms_k=1024)
+    return N.nms_inputs(cand.boxes, cand.conf, cand.cls, torch.tensor(VAL_CONF, device=DEVICE))
+
+
+def phase_e2e_train(torch, det) -> list:
+    """Training and validation at full width; -> the K1 and K2 entries of
+    validation's own tensors (``case: val_conf0.001``)."""
+    import copy
+    import json as _json
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from unittest import mock
+
+    from ood_in_object_detection_torch.cli import train as ttrain
+    from ood_in_object_detection_torch.cli import val as tval
+    from ood_in_object_detection_torch.core import checkpoint as CK
+    from ood_in_object_detection_torch.data import DetectionDataset, PaddedBatcher
+    from ood_in_object_detection_torch.engine import Detector
+    from ood_in_object_detection_torch.ops import nms as N
+    from ood_in_object_detection_torch.ops import roi_align as R
+    from ood_in_object_detection_torch.train import trainer as TTR
+    from ood_in_object_detection_torch.train.loss import detection_loss
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="e2e_train_"))
+    try:
+        yaml = write_train_dataset(torch, det, tmp / "data")
+        start = tmp / "start"
+        start_checkpoint(torch, det, start)
+        t_data = time.perf_counter() - t_phase
+
+        # 1. cli.train, f32, augmentation on, validation every epoch with the
+        # counters reset just before and read just after each validate
+        vals, real_validate = [], ttrain.validate
+
+        def counted_validate(model, state, val_ds, args, nc):
+            torch.cuda.synchronize()
+            reset_counters()
+            t0 = time.perf_counter()
+            metrics = real_validate(model, state, val_ds, args, nc)
+            torch.cuda.synchronize()
+            vals.append(dict(seconds=time.perf_counter() - t0, launches=read_counters(),
+                             mAP50=float(metrics["mAP50"]), mAP50_95=float(metrics["mAP50_95"]),
+                             model=model, ema={k: v.detach().clone()
+                                               for k, v in state.ema_params.items()}))
+            return metrics
+
+        t0 = time.perf_counter()
+        with mock.patch.object(ttrain, "validate", counted_validate):
+            ttrain.main(train_cli_args(yaml, tmp / "runs", "f32", "--close_mosaic", "0",
+                                       "--resume", str(start)))
+        train_s = time.perf_counter() - t0
+        run = tmp / "runs" / "f32"
+        rows = [ln.split(",") for ln in (run / "results.csv").read_text().splitlines()[1:]]
+        epochs = [dict(epoch=int(r[0]), seconds=float(r[1]),
+                       images_per_s=TRAIN_IMAGES / float(r[1]), box=float(r[2]),
+                       cls=float(r[3]), dfl=float(r[4]), total=float(r[5]), lr=float(r[6]),
+                       mAP50=float(r[7]), mAP50_95=float(r[8])) for r in rows]
+        if len(vals) != TRAIN_EPOCHS or len(epochs) != TRAIN_EPOCHS:
+            raise AssertionError(f"cli.train: {len(vals)} validations, {len(epochs)} rows")
+        for v in vals:
+            if not (np.isfinite(v["mAP50"]) and np.isfinite(v["mAP50_95"])):
+                raise AssertionError(f"validate: non-finite mAP {v}")
+            missing = [k for k in ("fused_stem", "greedy_keep", "roi_contract")
+                       if not v["launches"][k]]
+            if missing or v["launches"]["roi_contract_bf16"]:
+                raise AssertionError(f"validate did not launch {missing}: {v['launches']}")
+        emit("e2e_train_cli", model=MODEL, img_size=IMG, nc=NC, batch=TRAIN_BATCH,
+             images=TRAIN_IMAGES, val_images=VAL_IMAGES, augment="mosaic, HSV, flip",
+             seconds=train_s, dataset_seconds=t_data, epochs=epochs,
+             validate=[{k: v[k] for k in ("seconds", "launches", "mAP50", "mAP50_95")}
+                       for v in vals])
+
+        # 2. cli.val on the last checkpoint: its --out equals validate's numbers
+        out_json = tmp / "val.json"
+        t0 = time.perf_counter()
+        tval.main(["--model_path", str(run), "--dataset", str(yaml), "--img_size", str(IMG),
+                   "--batch_size", str(TRAIN_BATCH), "--max_gt", "20", "--device", cli_device(),
+                   "--out", str(out_json)])
+        val_s = time.perf_counter() - t0
+        got = _json.loads(out_json.read_text())
+        last = vals[-1]
+        if any(abs(got[k] - last[k]) > 1e-6 for k in ("mAP50", "mAP50_95")):
+            raise AssertionError(f"cli.val {got} against validate {last['mAP50']}, "
+                                 f"{last['mAP50_95']}")
+
+        # 3. resume: --resume from the epoch-0 checkpoint continues at epoch 1,
+        # its first step's loss that of the uninterrupted run (letterboxed
+        # batches in order, --no_augment, so that both see the same batches)
+        step_losses, real_step = [], TTR.train_step
+
+        def recorded_step(*a, **kw):
+            state, lb = real_step(*a, **kw)
+            step_losses.append(float(lb.total))
+            return state, lb
+
+        epoch0, real_save = tmp / "epoch0", CK.save_checkpoint
+
+        def save_and_keep(path, state, train_args, model_name, epoch=0):
+            real_save(path, state, train_args, model_name, epoch)
+            if epoch == 0:
+                shutil.copytree(path, epoch0)
+
+        plain = ("--no_augment", "--do_not_val_during_training")
+        with mock.patch.object(TTR, "train_step", recorded_step), \
+                mock.patch.object(CK, "save_checkpoint", save_and_keep):
+            ttrain.main(train_cli_args(yaml, tmp / "runs", "whole", *plain,
+                                       "--resume", str(start)))
+        whole = list(step_losses)
+        step_losses.clear()
+        with mock.patch.object(TTR, "train_step", recorded_step):
+            ttrain.main(train_cli_args(yaml, tmp / "runs", "resumed", *plain,
+                                       "--resume", str(epoch0)))
+        spe = TRAIN_IMAGES // TRAIN_BATCH
+        meta = _json.loads((tmp / "runs" / "resumed" / "meta.json").read_text())
+        resume = dict(steps_whole=len(whole), steps_resumed=len(step_losses),
+                      loss_whole=whole[spe], loss_resumed=step_losses[0],
+                      rel=abs(step_losses[0] - whole[spe]) / abs(whole[spe]),
+                      resumed_epoch=meta["epoch"])
+        if not (len(whole) == 2 * spe and len(step_losses) == spe and meta["epoch"] == 1
+                and resume["rel"] <= 1e-6):
+            raise AssertionError(f"resume: {resume}")
+        emit("e2e_train_resume", **resume, cli_val=got, cli_val_seconds=val_s)
+
+        # 4. K1 and K2 on validation's own tensors (the EMA model, conf 0.001)
+        vmodel = copy.deepcopy(last["model"])
+        vmodel.load_state_dict(last["ema"])
+        vdet = Detector(model=vmodel.eval(), img_size=IMG)
+        val_ds = DetectionDataset.from_yaml(str(yaml), split="val")
+        vb = next(iter(PaddedBatcher(val_ds, TRAIN_BATCH, IMG, max_gt=20, workers=4)))
+        with torch.no_grad():
+            shifted, valid = val_candidates(torch, vdet, vb["images"])
+            k1 = nms_entry(torch, N, shifted, valid, last["launches"]["greedy_keep"], model=MODEL)
+            k1.update(case="val_conf0.001", valid_per_image=valid.sum(1).tolist())
+            out = vdet.predict(vb["images"], conf_thres=VAL_CONF)
+            k2 = roi_entry(torch, R, "roi_contract",
+                           "ood_in_object_detection_tpu/ops/pallas/roi.py:113", out,
+                           last["launches"]["roi_contract"], 1e-5, model=MODEL)
+            # the EMA model's eval-mode maps after a few warmup steps can be
+            # huge (BatchNorm biases moved at the warmup's bias LR, running
+            # statistics trailing): the error beside the maps' scale
+            scale = max(float(f.abs().max()) for f in out.neck)
+            k2.update(case="val_conf0.001", map_scale=scale,
+                      max_abs_err_over_map_scale=k2["max_abs_err"] / scale)
+        del vdet, vmodel, vals
+        torch.cuda.empty_cache()
+
+        # 5. a train step's time, device time by op and peak memory: f32,
+        # f32 with remat, bf16 (batch TRAIN_BATCH); the overfit check in f32
+        # and bf16 (batch OVERFIT_BATCH)
+        tb = next(iter(PaddedBatcher(DetectionDataset.from_yaml(str(yaml), split="train"),
+                                     TRAIN_BATCH, IMG, max_gt=20, workers=4)))
+        batch = TTR.batch_to(tb, DEVICE)
+        small = TTR.batch_to(overfit_batch(OVERFIT_BATCH), DEVICE)
+        steps = [step_readings(torch, batch, profile=True),
+                 step_readings(torch, batch, remat=True),
+                 step_readings(torch, batch, dtype=torch.bfloat16)]
+        for s in steps:
+            emit("e2e_train_step", **s)
+        overfit = [overfit_reading(torch, small), overfit_reading(torch, small, torch.bfloat16)]
+        emit("e2e_train_overfit", runs=overfit)
+        if not all(r["ok"] for r in overfit):
+            raise AssertionError(f"overfit: {overfit}")
+
+        # 6. one f32 step on the card against the CPU
+        ref = train_reference_reading(torch)
+        emit("e2e_train_reference", **ref, limits=TRAIN_REF_LIMITS)
+        if ref["loss_rel"] > TRAIN_REF_LIMITS["loss_rel"] or \
+                ref["update_rel"] > TRAIN_REF_LIMITS["update_rel"]:
+            raise AssertionError(f"train step card against CPU: {ref}")
+
+        # 7. yolov10l: the one2one loss alone leaves the backbone and neck
+        # without gradient on the card; V10_STEPS steps of the dual loss
+        m = seeded_model(torch, V10_MODEL)
+        m.train()
+        args = (small["gt_labels"], small["gt_bboxes"], small["gt_mask"], NC)
+        one2one = m(small["images"])[0]
+        detection_loss(one2one, *args, assign_topk=1).total.backward()
+        head = f"model.{m.detect_layer_idx}."
+        body = [p for n, p in m.named_parameters() if not n.startswith(head)]
+        body_grad = sum(float(p.grad.abs().sum()) for p in body if p.grad is not None)
+        o2o_grad = sum(float(p.grad.abs().sum()) for n, p in m.named_parameters()
+                       if n.startswith(head + "one2one_") and p.grad is not None)
+        m.zero_grad(set_to_none=True)
+        cfg = TTR.TrainConfig(warmup_epochs=0.0)
+        state = TTR.init_state(m, cfg)
+        v10 = [{k: float(getattr(TTR.train_step(m, cfg, state, small)[1], k))
+                for k in ("total", "box", "cls", "dfl")} for _ in range(V10_STEPS)]
+        emit("e2e_train_v10", model=V10_MODEL, batch=OVERFIT_BATCH,
+             backbone_grad_from_one2one=body_grad, one2one_head_grad=o2o_grad, losses=v10)
+        if body_grad != 0.0 or o2o_grad <= 0 or \
+                not all(np.isfinite(v) for row in v10 for v in row.values()):
+            raise AssertionError(f"{V10_MODEL}: one2one gradient {body_grad} into the body, "
+                                 f"head {o2o_grad}, losses {v10}")
+        del m, state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("e2e_train_done", seconds=time.perf_counter() - t_phase)
+    return [k1, k2]
+
+
 # the stem ladder's kernels: (source, the rung whose numbers head the entry)
 STEM_PARTS = {
     "window_copy": ("stem_parts_copy", "stem kernel [io]"),
@@ -2456,8 +2944,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card.")
     ap.add_argument("--reference-seeds", type=int, default=0, metavar="N",
                     help="only take the card-vs-CPU reference readings of yolov8l and the "
-                         "families on N seeds, sound and with a fault (reference_spread), "
-                         "and print no result")
+                         "families on N seeds, sound and with a fault (reference_spread, "
+                         "train_spread), and print no result")
+    ap.add_argument("--only", choices=["e2e_train"], default="",
+                    help="run this phase alone (after env and build; e2e_train on a "
+                         "detector of its own), print its kernel entries and no result; "
+                         "with --reference-seeds, take only its readings")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one CUDA card",
@@ -2473,7 +2965,16 @@ def main() -> int:
          kernels=[{k: b[k] for k in ("name", "seconds")} for b in builds],
          nvcc_flags=" ".join(_build.NVCC_FLAGS))
     if args.reference_seeds:
-        reference_spread(torch, args.reference_seeds)
+        if not args.only:
+            reference_spread(torch, args.reference_seeds)
+        train_spread(torch, args.reference_seeds)
+        return 0
+    if args.only == "e2e_train":
+        rng = np.random.default_rng(SEED)
+        det = family_detector(torch, MODEL, make_batches(rng, 3))
+        entries = phase_e2e_train(torch, det)
+        emit("done", seconds=time.perf_counter() - t_start)
+        print(json.dumps({"kernels": entries, "card": env["nvidia_smi"]}), flush=True)
         return 0
     det, methods, ind, ood, launches, step_ms = phase_e2e(torch)
     launches_eul, eul_parts = phase_e2e_eul(torch, det, methods["Cosine_cl_stride"], ood)
@@ -2492,6 +2993,7 @@ def main() -> int:
     entries.append(sdr_entry)
     entries += phase_e2e_families(torch)
     entries += phase_xscale_stem(torch, images)
+    entries += phase_e2e_train(torch, det)
     entries += phase_stem_parts(torch)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": entries, "card": env["nvidia_smi"]}), flush=True)

@@ -8,7 +8,10 @@ package, a checkpoint is a directory:
 - ``state.pt`` (``torch.save``): ``{"params": state_dict, "ema_params":
   state_dict, "nc": int}``, each state_dict ultralytics-named (the names
   ``utils/weight_import.py:export_state_dict`` of the JAX package writes and
-  the port's modules carry), f32 where floating, on the CPU;
+  the port's modules carry), f32 where floating, on the CPU; a training
+  state (train/trainer.py:TrainState) adds ``opt_state`` (the optimizer's
+  state_dict: its momentum buffers) and ``step``, as the JAX package's
+  checkpoint does, for :func:`restore_train_state`;
 - ``meta.json``: ``train_args`` (with ``name``), ``model_name`` and
   ``epoch``, the JAX package's keys.
 
@@ -29,7 +32,16 @@ from torch import nn
 
 from ..utils.weights import class_count
 
-A9 = "ROADMAP.md A9 (training)"
+
+def _cpu_tree(obj):
+    """An optimizer state_dict's tensors copied to the CPU, the rest as is."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _cpu_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_cpu_tree(v) for v in obj)
+    return obj
 
 
 def _cpu_state_dict(weights) -> Dict[str, torch.Tensor]:
@@ -47,19 +59,26 @@ def _cpu_state_dict(weights) -> Dict[str, torch.Tensor]:
 def save_checkpoint(path: str, state, train_args: Dict[str, Any], model_name: str,
                     epoch: int = 0) -> None:
     """Write the checkpoint directory ``path``. ``state`` is an ``nn.Module``
-    (its weights are both the parameters and the EMA) or a mapping with
-    ``params`` and optionally ``ema_params`` (default: ``params``), each a
-    module or a state_dict of torch tensors or numpy arrays. The class count
-    comes from the detect head's class bias (``cv3.0.2.bias``)."""
+    (its weights are both the parameters and the EMA), a training state
+    (train/trainer.py:TrainState: its parameters, EMA, optimizer state and
+    step), or a mapping with ``params`` and optionally ``ema_params``
+    (default: ``params``), each a module or a state_dict of torch tensors or
+    numpy arrays. The class count comes from the detect head's class bias
+    (``cv3.0.2.bias``)."""
+    extra = {}
     if isinstance(state, nn.Module):
         params = ema = _cpu_state_dict(state)
-    else:
+    elif isinstance(state, Mapping):
         params = _cpu_state_dict(state["params"])
         ema = _cpu_state_dict(state["ema_params"]) if state.get("ema_params") is not None \
             else params
+    else:  # a TrainState
+        params, ema = _cpu_state_dict(state.params), _cpu_state_dict(state.ema_params)
+        extra = {"opt_state": _cpu_tree(state.optimizer.state_dict()), "step": int(state.step)}
     p = Path(path).resolve()
     p.mkdir(parents=True, exist_ok=True)
-    torch.save({"params": params, "ema_params": ema, "nc": class_count(params)}, p / "state.pt")
+    torch.save({"params": params, "ema_params": ema, "nc": class_count(params), **extra},
+               p / "state.pt")
     (p / "meta.json").write_text(json.dumps({
         "train_args": train_args,
         "model_name": model_name,
@@ -79,9 +98,29 @@ def load_checkpoint(path: str, use_ema: bool = True,
     return payload["ema_params" if use_ema else "params"], meta
 
 
-def restore_train_state(path: str, model, cfg, sample_images):
-    """Mid-training resume waits on the trainer."""
-    raise NotImplementedError(f"restore_train_state is not ported yet ({A9})")
+def restore_train_state(path: str, model: nn.Module, cfg, sample_images=None):
+    """A training state restored from ``path`` into ``model`` (built for the
+    checkpoint's model and class count, on its device): parameters and
+    BatchNorm statistics, EMA, optimizer state (momentum buffers) and step,
+    for a resume at epoch ``meta["epoch"] + 1`` (reference
+    engine/trainer.py resume_training). ``sample_images`` is unused: the
+    port's model needs no sample to build its state (the JAX package's
+    signature). -> (TrainState, meta)."""
+    from ..train.trainer import init_state, load_ema
+
+    p = Path(path).resolve()
+    meta = json.loads((p / "meta.json").read_text())
+    device = next(model.parameters()).device
+    payload = torch.load(p / "state.pt", map_location=device, weights_only=True)
+    if "opt_state" not in payload:
+        raise ValueError(f"{path} holds weights only (no optimizer state): it cannot resume")
+    model.load_state_dict(payload["params"], strict=True)
+    state = init_state(model, cfg)
+    state.optimizer.load_state_dict(payload["opt_state"])
+    load_ema(state, payload["ema_params"])
+    state.step = int(payload["step"])
+    meta.setdefault("nc", int(payload["nc"]))
+    return state, meta
 
 
 def checkpoint_name(path: str) -> str:

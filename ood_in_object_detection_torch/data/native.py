@@ -2,6 +2,13 @@
 
 The library is built on demand from native/letterbox.cpp; callers fall back
 to the NumPy/PIL path transparently when a toolchain is unavailable.
+
+Unlike the JAX package's copy, the first load runs under a lock and marks
+itself done only once the library is loaded or refused: PaddedBatcher's
+decode threads call ``_load`` together, and the unlocked copy let the
+threads that came while another was still loading take the NumPy path, so
+a process's first batch mixed the two letterboxes (``/ 255.0`` against
+``* (1.0f / 255.0f)``, 6e-8 apart).
 """
 
 from __future__ import annotations
@@ -9,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import logging
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
@@ -21,13 +29,24 @@ log = logging.getLogger(__name__)
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
+    global _TRIED
     if _TRIED:
         return _LIB
-    _TRIED = True
+    with _LOAD_LOCK:
+        if not _TRIED:
+            _load_locked()
+            _TRIED = True
+    return _LIB
+
+
+def _load_locked() -> None:
+    """Build (if needed) and load the library into ``_LIB``; leaves it None
+    where there is no toolchain or the load fails."""
+    global _LIB
     so = _NATIVE_DIR / "libletterbox.so"
     if not so.exists():
         try:
@@ -35,7 +54,7 @@ def _load() -> Optional[ctypes.CDLL]:
                            capture_output=True, timeout=120)
         except Exception as e:  # no toolchain: numpy fallback
             log.info("native letterbox unavailable (%s); using NumPy path", e)
-            return None
+            return
     try:
         lib = ctypes.CDLL(str(so))
         lib.letterbox_u8_to_f32.argtypes = [
@@ -47,7 +66,6 @@ def _load() -> Optional[ctypes.CDLL]:
         _LIB = lib
     except OSError as e:
         log.info("native letterbox failed to load: %s", e)
-    return _LIB
 
 
 def native_available() -> bool:

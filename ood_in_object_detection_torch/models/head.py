@@ -87,17 +87,22 @@ class Detect(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor]):
         """Raw maps in the neck's dtype (head.py:48-89 with dtype): the
-        dual head's one2one maps alone in eval, both in training."""
+        dual head's one2one maps alone in eval, both in training, the
+        one2one pair then on detached features (head.py:55), so that its
+        loss trains that pair alone."""
         def branch(seq, x):
             return conv_in_dtype(seq[2], seq[1](seq[0](x)))
 
-        pairs = self._pairs()
-        if self.dual and not self.training:
-            pairs = pairs[1:]  # one2one alone: the inference path
-        outs = [[torch.cat([branch(box, x), branch(cls, x)], dim=1)
-                 for x, box, cls in zip(feats, boxes, clss)]
-                for boxes, clss in pairs]
-        return tuple(outs) if len(outs) == 2 else outs[0]
+        def maps(boxes, clss, xs):
+            return [torch.cat([branch(box, x), branch(cls, x)], dim=1)
+                    for x, box, cls in zip(xs, boxes, clss)]
+
+        if not self.dual:
+            return maps(self.cv2, self.cv3, feats)
+        if not self.training:  # one2one alone: the inference path
+            return maps(self.one2one_cv2, self.one2one_cv3, feats)
+        return (maps(self.cv2, self.cv3, feats),
+                maps(self.one2one_cv2, self.one2one_cv3, [f.detach() for f in feats]))
 
 
 def make_anchors(hw_per_level: Sequence[Tuple[int, int]], strides=STRIDES,

@@ -17,6 +17,11 @@ each call, as flax promotes its f32 params at each call: no cached copy can
 go stale when weights are loaded or calibrated after the model is built,
 and the cast is a small share of a conv's time. ``torch.autocast`` is not
 used, since it rounds at other points than flax.
+
+In training, BatchNorm is flax's (:func:`bn_train`), not nn.BatchNorm2d's:
+batch statistics with the biased variance, the running statistics updated
+with that biased variance, and the update held back until the trainer
+commits it (:func:`commit_batch_stats`).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..ops.stem import silu
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
+BN_DECAY = 0.97  # flax's momentum: running = 0.97 * running + (1 - 0.97) * batch
 
 
 def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -48,8 +54,51 @@ def bn_inference(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     return (y + bn.bias[:, None, None]).to(x.dtype)
 
 
+def bn_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """flax BatchNorm(use_running_average=False, momentum=0.97, epsilon=1e-3,
+    dtype=x.dtype) (layers.py:70-73 of the JAX package; flax
+    linen/normalization.py ``_compute_stats``, ``_normalize``): the batch
+    mean and biased variance over (B, H, W) in f32, the variance in its fast
+    form ``max(E[x^2] - E[x]^2, 0)``; ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias`` in f32, rounded to x's dtype. The running statistics
+    flax writes, ``0.97 * running + (1 - 0.97) * batch`` with the biased
+    variance (nn.BatchNorm2d writes the unbiased one), wait in
+    ``bn.pending_stats`` until :func:`commit_batch_stats`: a layer
+    recomputed under remat sets the same values again, and the buffers move
+    only when the step is taken, as the JAX step returns its new
+    ``batch_stats``."""
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.pending_stats = (BN_DECAY * bn.running_mean + (1 - BN_DECAY) * mean,
+                            BN_DECAY * bn.running_var + (1 - BN_DECAY) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+    return y.to(x.dtype)
+
+
+@torch.no_grad()
+def commit_batch_stats(model: nn.Module) -> int:
+    """Write every pending flax running statistic (:func:`bn_train`) into
+    its BatchNorm's buffers; -> how many BatchNorms moved."""
+    n = 0
+    for m in model.modules():
+        stats = getattr(m, "pending_stats", None)
+        if isinstance(m, nn.BatchNorm2d) and stats is not None:
+            m.running_mean.copy_(stats[0])
+            m.running_var.copy_(stats[1])
+            m.pending_stats = None
+            n += 1
+    return n
+
+
 class Conv(nn.Module):
-    """Conv2d(bias=False) + BatchNorm2d(eps=1e-3) + SiLU, padding k // 2."""
+    """Conv2d(bias=False) + BatchNorm2d(eps=1e-3) + SiLU, padding k // 2.
+    BatchNorm in training mode is flax's (:func:`bn_train`), but under
+    torch's cumulative average (``momentum=None``, which
+    utils/weights.py:calibrate_batchnorm sets), which keeps nn.BatchNorm2d's
+    own."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
                  act: bool = True):
@@ -59,7 +108,9 @@ class Conv(nn.Module):
         self.act = act
 
     def forward(self, x):
-        if x.dtype == torch.float32:
+        if self.bn.training and self.bn.momentum is not None:
+            x = bn_train(self.bn, conv_in_dtype(self.conv, x))
+        elif x.dtype == torch.float32:
             x = self.bn(self.conv(x))
         else:
             x = bn_inference(self.bn, conv_in_dtype(self.conv, x))

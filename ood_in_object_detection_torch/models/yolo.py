@@ -14,6 +14,13 @@ parameters, as the JAX model runs its phase-folded stem (yolo.py:398-431),
 wherever the spec allows it, as the JAX model's gate does
 (:attr:`YOLODetector.stem_route`); ``folded_stem=False``, and every
 training-mode forward, keep the two Conv modules.
+
+Training runs in f32 or in bf16 (f32 parameters, bf16 compute, as the JAX
+package's ``--dtype bfloat16``), with flax's BatchNorm (models/layers.py:
+bn_train). With ``remat`` set, a training forward that records gradients
+runs every layer under ``torch.utils.checkpoint``: only the layers' outputs
+are kept for the backward, as the JAX trainer's ``save_only_these_names(
+"layer_out")`` keeps only the per-layer tags (yolo.py:564-569).
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import List, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.stem import fused_stem
 from . import layers as L
@@ -385,6 +393,7 @@ class YOLODetector(nn.Module):
         self.nc = nc
         self.folded_stem = folded_stem
         self.compute_dtype = dtype
+        self.remat = False  # checkpoint each layer in a training forward
         self.spec = [tuple(s) for s in spec]
         self.detect_layer_idx = len(self.spec) - 1
 
@@ -475,8 +484,6 @@ class YOLODetector(nn.Module):
                 and x.shape[2] % 4 == 0 and x.shape[3] % 4 == 0)
 
     def forward(self, x: torch.Tensor):
-        if self.training and self.compute_dtype != torch.float32:
-            raise NotImplementedError("training runs in f32: bf16 training is not ported")
         x = x.to(self.compute_dtype)  # after normalisation, as yolo.py:416
         ys: List = []
         start = 0
@@ -484,19 +491,24 @@ class YOLODetector(nn.Module):
             x = fused_stem(x, self.model[0], self.model[1], self.compute_dtype)
             ys.extend([x, x])  # ys[0] is never read (checked by _spec_folds_stem)
             start = 2
+        remat = self.remat and self.training and torch.is_grad_enabled()
+
+        def run(m, inp):
+            return checkpoint(m, inp, use_reentrant=False) if remat else m(inp)
+
         for li, ((frm, _, mod, _), m) in enumerate(zip(self.spec, self.model)):
             if li < start:
                 continue
             if mod == "Detect":
                 neck = [ys[i] for i in frm]
-                out = m(neck)
+                out = run(m, neck)
                 if isinstance(out, tuple):  # one2one first (yolo.py:436-452)
                     return out[1], neck, out[0]
                 return out, neck
             if isinstance(frm, int):
-                x = m(x if frm == -1 else ys[frm])
+                x = run(m, x if frm == -1 else ys[frm])
             else:
-                x = m([x if i == -1 else ys[i] for i in frm])
+                x = run(m, [x if i == -1 else ys[i] for i in frm])
             ys.append(x)
         raise RuntimeError("spec did not terminate with a Detect layer")
 

@@ -152,3 +152,28 @@ def spread_detect_head(state_dict: Dict[str, np.ndarray], seed: int,
                 b -= BOX_BIN_SLOPE * (np.arange(v.shape[0]) % (v.shape[0] // 4))
             out[k] = b.astype(np.float32)
     return out
+
+
+def graft_classification_backbone(model: nn.Module, pt_path: str, max_layer: int = 6) -> int:
+    """Load a classification checkpoint's backbone (layers 0..max_layer)
+    into a detector, leaving every other tensor as it is (reference
+    custom_training.py:129-133: the yolov8{size}-cls ``model[:7]``
+    state_dict loaded with strict=False; the cls and detect yamls share the
+    backbone through layer 6; the JAX package's
+    utils/weight_import.py:213-242). -> the count of grafted tensors
+    (parameters and BatchNorm statistics, as the JAX package counts its
+    leaves). Raises where the file has no such keys or none matches."""
+    sd = state_dict_from_torch_file(pt_path)
+    pat = re.compile(r"^model\.(\d+)\.")
+    keep = {k: v for k, v in sd.items()
+            if (m := pat.match(k)) and int(m.group(1)) <= max_layer}
+    if not keep:
+        raise ValueError(f"{pt_path} has no model.0..{max_layer} backbone keys")
+    own = [k for k in model.state_dict() if not k.endswith("num_batches_tracked")
+           and not k.endswith(".dfl.conv.weight")]
+    grafted = [k for k in own if k in keep]
+    if not grafted:
+        raise ValueError(f"no tensors from {pt_path} matched the detector backbone "
+                         "(shape/naming mismatch?)")
+    load_torch_state_dict(model, {k: keep[k] for k in grafted})
+    return len(grafted)

@@ -207,10 +207,12 @@ def test_dbcv_matches_jax(metric):
         jdbcv.validity_index(x, labels, metric=metric, d=6)
 
 
-@pytest.mark.parametrize("rel", ["data/oak_sos.py", "data/owod_tools.py", "utils/log.py"])
+@pytest.mark.parametrize("rel", ["data/oak_sos.py", "data/owod_tools.py", "utils/log.py",
+                                 "data/augment.py", "eval/det_metrics.py", "utils/tb_events.py"])
 def test_tool_modules_are_the_jax_modules(rel):
-    """data/oak_sos.py, data/owod_tools.py and utils/log.py are the JAX
-    package's modules, unchanged."""
+    """data/oak_sos.py, data/owod_tools.py, utils/log.py and the training
+    path's data/augment.py, eval/det_metrics.py and utils/tb_events.py are
+    the JAX package's modules, unchanged."""
     from pathlib import Path
 
     import ood_in_object_detection_torch as T
