@@ -89,14 +89,28 @@ script exits non-zero without printing a result):
    evaluate again with the counters reset; K4 and K2's bf16 route must have
    launched. Prints the bf16 predict step and the share of detections and of
    per-box decisions that differ from the f32 path, each under a ceiling.
-9. reference: one image through the card (kernels) and through the CPU
+9. e2e_bundle (the serving bundle, utils/export.py): e2e_serve's
+   checkpoint through ``cli.ood_eval --model_path ... --ood_method
+   fusion-MSP-Cosine_cl_stride --export_bundle DIR --export_bundle_batch 8``,
+   in f32 and with --bf16 (export seconds, bundle bytes); each bundle
+   served by ``scripts/serve_bundle.py`` in a fresh process given only DIR
+   and an .npy of 64 images, under 8 closed-loop clients: load and warm-up
+   seconds, images/s, p50 / p99 latency, K4, K1 and K2 (K2b in bf16)
+   launches per group and K3's, all counted in that process with its
+   counters reset just before the clients. Every result against the live
+   detector (e2e's, e2e_bf16's) and the bundle's method on the same stacked
+   batch: counts, classes and verdicts equal, floats bit for bit. Then a
+   bundle exported from the CPU detector of the same weights, served on the
+   card (K4, K1, K2 must launch), against the f32 bundle served on the CPU,
+   image by image within REF_LIMITS.
+10. reference: one image through the card (kernels) and through the CPU
    (plain PyTorch versions) with the same weights; maps, detections and
    taps must agree within REF_LIMITS, and each layer (the stem also
    through fused_stem, K4 on the card) within LAYER_REL_TOL on the CPU's
    own input to it.
-10. profile, profile_bf16: device time of the predict step by kernel
+11. profile, profile_bf16: device time of the predict step by kernel
    (torch.profiler).
-11. kernels: each kernel against its plain PyTorch version on the card, on
+12. kernels: each kernel against its plain PyTorch version on the card, on
    tensors captured from the main paths (plus controlled, chain, k = 4096,
    (2, 8400) and k = 16384 NMS cases, K 5 and K 200 centroid banks with
    masked centroids and empty groups, yolov8n's stem widths and a corner
@@ -109,14 +123,18 @@ script exits non-zero without printing a result):
    the masked minimum (cublas_amin_ms); K2 gets Q built from wx and wy plus
    torch.bmm (library_with_q_ms) and, per level, the count of non-empty
    rows and the median, p99 and largest support rectangle; K4 gets the
-   launcher alone on operands folded once (kernel_ms). K2 (f32) and K3 also
+   launcher alone on operands folded once (kernel_ms). K1, K2, K2b and K4
+   also get the ``ood_torch`` operator's time against its CUDA
+   implementation called directly on the same inputs (operator_ms,
+   direct_ms, dispatch_us; ops/library.py). K2 (f32) and K3 also
    carry ``eul_rank``: their numbers at the EUL rank's inputs, and K3
    ``cluster_banks``: its numbers at the sweep's fitted banks. Launch
    counts add up every main path's run (e2e, e2e_eul, e2e_sweeps, e2e_serve,
-   e2e_bf16); e2e_sdr's entry carries its own;
+   e2e_bf16, e2e_bundle with its serving processes); e2e_sdr's entry
+   carries its own;
    e2e_families' entries carry their own model's counts, e2e_train's those
    of its last validation.
-12. e2e_families (the other YOLO families on the f32 path): yolov9c,
+13. e2e_families (the other YOLO families on the f32 path): yolov9c,
    yolov10l, yolo11l and yolo12l (the l models of the paper's V9-V12
    results) at 640 px, nc=20, batch 8, TF32 off, seeded, BatchNorm
    calibrated and head spread as in e2e, 2 InD batches and one OoD batch
@@ -132,12 +150,12 @@ script exits non-zero without printing a result):
    against their plain versions on the model's own tensors, as kernel
    entries tagged with the model. yolo12l runs again
    in bf16 (attention, K2b and K4's bf16 route at full width).
-13. e2e_xscale (K4's second specialization, C1 96 / C2 192): yolo11x
+14. e2e_xscale (K4's second specialization, C1 96 / C2 192): yolo11x
    seeded, BatchNorm calibrated and head spread, one predict step in f32
    and in bf16 with the counters reset just before and read just after (K4
    once each), then K4 against its plain version on that stem, kernel
    entries tagged ``model: yolo11x``.
-14. e2e_train (training and its validation): TRAIN_IMAGES + VAL_IMAGES
+15. e2e_train (training and its validation): TRAIN_IMAGES + VAL_IMAGES
    seeded scenes labelled by e2e's detector as a dataset with train and val
    splits, and e2e's weights saved as a training state at epoch -1 (a
    start that ``--resume`` takes at epoch 0). cli.train at yolov8l, 640 px,
@@ -159,7 +177,7 @@ script exits non-zero without printing a result):
    train_spread). yolov10l: the one2one loss alone leaves the backbone and
    neck with zero gradient on the card; 2 dual-loss steps at batch 8, finite.
    ``python3 chip_smoke.py --only e2e_train`` runs this phase alone.
-15. stem_parts (the stem probe ladder's path): the ladder entry point
+16. stem_parts (the stem probe ladder's path): the ladder entry point
    (``python -m ood_in_object_detection_torch.scripts.bench_stem_parts``)
    driven through all four ladders at full size, z (128, 160(+2), 160, 48)
    bf16, with the counters reset just before and read just after; the
@@ -230,6 +248,19 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def dispatch_ms(op_call, direct_call, reps: int = 50, rounds: int = 3) -> dict:
+    """An ``ood_torch`` operator's call against the direct call of its CUDA
+    implementation (ops/library.py) on the same inputs, alternated
+    ``rounds`` times, ``reps`` calls each (CUDA events): the least of each
+    and the difference, the dispatcher's cost, in microseconds."""
+    op, direct = [], []
+    for _ in range(rounds):
+        op.append(cuda_ms(op_call, reps=reps))
+        direct.append(cuda_ms(direct_call, reps=reps))
+    return dict(operator_ms=min(op), direct_ms=min(direct),
+                dispatch_us=(min(op) - min(direct)) * 1e3)
 
 
 def bound(bytes_moved: float, ops: float, kind: str) -> dict:
@@ -1222,7 +1253,7 @@ def _serve_check_rows(torch, det, method, batch, rows, results) -> dict:
     return dict(out=out, mismatches=bad)
 
 
-def phase_e2e_serve(torch, det, ind, ood, env):
+def phase_e2e_serve(torch, det, ind, ood, env, root):
     """The serving path on e2e's detector (yolov8l, f32, its seeded weights):
     a checkpoint round trip, cli.ood_eval --model_path (MSP and
     Cosine_cl_stride), cli.predict --model_path with the fitted Cosine
@@ -1230,12 +1261,11 @@ def phase_e2e_serve(torch, det, ind, ood, env):
     under SERVE_CLIENTS closed-loop clients and a lone request, and one
     served group against the CPU's plain versions within REF_LIMITS. The
     counters are reset just before and read just after each of the three
-    runs; K1-K4 must launch in the predict CLI and in the server. -> the
+    runs; K1-K4 must launch in the predict CLI and in the server. The
+    checkpoint and the datasets stay in ``root`` for e2e_bundle. -> the
     launches of the three runs."""
     import copy
-    import tempfile
     import threading
-    from pathlib import Path
 
     from PIL import Image
 
@@ -1250,8 +1280,6 @@ def phase_e2e_serve(torch, det, ind, ood, env):
     from ood_in_object_detection_torch.serving import MicroBatchServer, _split_output
 
     t_phase = time.perf_counter()
-    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_serve_")
-    root = Path(tmp.name)
     paths = (C.RESULTS_PATH, C.STORAGE_PATH)
     C.RESULTS_PATH, C.STORAGE_PATH = root / "results", root / "storage"
     failures = []
@@ -1468,7 +1496,6 @@ def phase_e2e_serve(torch, det, ind, ood, env):
                          detections_cpu=sum(r["detections_cpu"] for r in readings))
     finally:
         C.RESULTS_PATH, C.STORAGE_PATH = paths
-        tmp.cleanup()
     emit("e2e_serve", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, dtype="float32",
          card=env["nvidia_smi"], checkpoint=checkpoint, ood_eval=evals, cache_files=caches,
          predict=predict, serve=serve, reference=reference,
@@ -1476,6 +1503,172 @@ def phase_e2e_serve(torch, det, ind, ood, env):
     if failures:
         raise AssertionError("e2e_serve: " + "; ".join(failures))
     return _added(*eval_launches, predict_launches, serve_launches, lone_launches)
+
+
+BUNDLE_METHOD = "fusion-MSP-Cosine_cl_stride"  # e2e's two fitted methods, in one bundle
+
+
+def phase_e2e_bundle(torch, det, det16, root, env):
+    """The serving bundle on e2e's weights (yolov8l, 640 px, nc 20): for f32
+    and --bf16, ``cli.ood_eval --model_path <e2e_serve's checkpoint>
+    --ood_method BUNDLE_METHOD --export_bundle DIR --export_bundle_batch
+    BATCH``, then ``scripts/serve_bundle.py`` in a fresh process given only
+    DIR and an .npy of SERVE_REQUESTS images, under SERVE_CLIENTS
+    closed-loop clients, TF32 off as here (counters reset there just before
+    the clients): K4,
+    K1 and K2 (K2b for bf16) once per group and K3 must launch; each result
+    against the live detector (``det``, ``det16``) and the bundle's method
+    on the same stacked batch (``_serve_check_rows``): counts, classes and
+    verdicts equal, floats bit for bit. Then a bundle exported from the CPU detector with the same
+    weights, served on the card (K4, K1, K2 must launch), against the f32
+    bundle served on the CPU, image by image within REF_LIMITS. -> the
+    launches of the phase's runs on the card."""
+    import copy
+    import pickle
+    import zipfile
+    from pathlib import Path
+    from unittest import mock
+
+    from ood_in_object_detection_torch import constants as C
+    from ood_in_object_detection_torch.cli import ood_eval as E
+    from ood_in_object_detection_torch.engine import Detector
+    from ood_in_object_detection_torch.utils import export as XE
+
+    t_phase = time.perf_counter()
+    paths = (C.RESULTS_PATH, C.STORAGE_PATH)
+    C.RESULTS_PATH, C.STORAGE_PATH = root / "bundle_results", root / "bundle_storage"
+    ckpt = root / "v8l_serve"
+    yamls = [str(root / split / "sweep_ood.yaml") for split in ("ind", "ood")]
+    requests = np.concatenate(make_batches(np.random.default_rng(SEED + 40),
+                                           SERVE_REQUESTS // BATCH))
+    np.save(root / "requests.npy", requests)
+    failures, bundles, launches = [], {}, []
+    real_export = XE.export_serving_bundle
+    try:
+        for label, live, extra in (("f32", det, []), ("bf16", det16, ["--bf16"])):
+            out_dir = root / f"bundle_{label}"
+            export = {}
+
+            def timed_export(*a, **kw):
+                t = time.perf_counter()
+                p = real_export(*a, **kw)
+                export["export_s"] = time.perf_counter() - t
+                return p
+
+            before, t0 = read_counters(), time.perf_counter()
+            with mock.patch.object(XE, "export_serving_bundle", timed_export):
+                E.main(["--ood_method", BUNDLE_METHOD, "--model_path", str(ckpt),
+                        "--ind_dataset", yamls[0], "--ood_datasets", yamls[1],
+                        "--img_size", str(IMG), "--batch_size", str(BATCH),
+                        "--conf_thr_train", str(CONF), "--conf_thr_test", str(CONF),
+                        "--device", "0", "--name", "chip_smoke_bundle", *extra,
+                        "--export_bundle", str(out_dir), "--export_bundle_batch", str(BATCH)])
+            torch.cuda.synchronize()
+            launches.append(_delta(before))
+            cli_s = time.perf_counter() - t0
+            files = {p.name: p.stat().st_size for p in out_dir.iterdir()}
+            with zipfile.ZipFile(out_dir / "model.pt2") as z:  # the archive's parts
+                parts = {}
+                for info in z.infolist():
+                    key = "/".join(info.filename.split("/")[1:3])
+                    parts[key] = parts.get(key, 0) + info.file_size
+            proc = subprocess.run(
+                [sys.executable, "-m", "ood_in_object_detection_torch.scripts.serve_bundle",
+                 "--bundle", str(out_dir), "--images", str(root / "requests.npy"),
+                 "--out", str(out_dir / "served.pkl"), "--clients", str(SERVE_CLIENTS),
+                 "--max_wait_ms", str(SERVE_WAIT_MS), "--no_tf32"],
+                cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
+                timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"serve_bundle ({label}) failed (rc {proc.returncode}):\n"
+                                     f"{proc.stderr[-3000:]}")
+            report = json.loads(proc.stdout.strip().splitlines()[-1])
+            served = pickle.loads((out_dir / "served.pkl").read_bytes())
+            method = pickle.loads((out_dir / "ood_method.pkl").read_bytes())
+            mismatches, first = 0, None
+            for rows in served["groups"]:
+                batch = np.zeros((BATCH, IMG, IMG, 3), np.uint8)
+                batch[:len(rows)] = requests[rows]
+                mismatches += _serve_check_rows(torch, live, method, batch, rows,
+                                                served["results"])["mismatches"]
+                if first is None and len(rows) == BATCH:
+                    first = batch
+            got = report["launches"]
+            k2 = "roi_contract_bf16" if label == "bf16" else "roi_contract"
+            per_group = report["launches_per_group"]
+            if (per_group["fused_stem"], per_group["greedy_keep"], per_group[k2]) != (1, 1, 3) \
+                    or got["roi_contract" if label == "bf16" else "roi_contract_bf16"] \
+                    or not got["min_group_distances"]:
+                failures.append(f"{label} bundle: K4, K1, {k2} not once a group (K2 once a "
+                                f"level) or K3 not launched: {got}")
+            if report["unanswered"] or report["failed"] or report["imports_checkpoint_reader"]:
+                failures.append(f"{label} bundle server: {report['unanswered']} unanswered, "
+                                f"{report['failed']}, checkpoint reader imported "
+                                f"{report['imports_checkpoint_reader']}")
+            if mismatches:
+                failures.append(f"{label} bundle against the live detector: {mismatches} of "
+                                f"{SERVE_REQUESTS} results differ")
+            bundles[label] = dict(dir=out_dir, first=first, entry=dict(
+                cli_s=cli_s, export_s=export.get("export_s"), files_bytes=files,
+                model_pt2_parts_bytes=parts, cli_launches=launches[-1], serve=report,
+                mismatches=mismatches))
+
+        # a bundle exported on the CPU served on the card, against the card's
+        # f32 bundle served on the CPU, on the first full served group
+        batch = bundles["f32"]["first"]
+        if batch is None:
+            raise AssertionError("e2e_bundle: the f32 bundle served no full group")
+        cpu_det = Detector(model=copy.deepcopy(det.model).cpu(), img_size=IMG)
+        t0 = time.perf_counter()
+        cpu_dir = XE.export_serving_bundle(cpu_det, None, root / "bundle_cpu", batch=BATCH,
+                                           conf_thres=CONF)
+        cpu_export_s = time.perf_counter() - t0
+        x = torch.from_numpy(batch).float() * (1.0 / 255.0)
+        t0 = time.perf_counter()
+        on_card, _, _ = XE.load_serving_bundle(cpu_dir)
+        torch.cuda.synchronize()
+        card_load_s = time.perf_counter() - t0
+        before = read_counters()
+        with torch.no_grad():
+            g = on_card(x.to(DEVICE))
+        torch.cuda.synchronize()
+        launches.append(_delta(before))
+        if not all(launches[-1][k] for k in ("fused_stem", "greedy_keep", "roi_contract")):
+            failures.append(f"the CPU's bundle on the card did not launch K4, K1, K2: "
+                            f"{launches[-1]}")
+        on_cpu, _, _ = XE.load_serving_bundle(bundles["f32"]["dir"], device="cpu")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            c = on_cpu(x)
+        cpu_run_s = time.perf_counter() - t0
+        limits, readings = REF_LIMITS[MODEL], []
+        for i in range(BATCH):
+            # the bundle returns no raw head maps: their limit is not read here
+            r = detection_errors(torch, g, c, i, 0.0)
+            readings.append(r)
+            if not within_ref_limits(r, limits):
+                failures.append(f"CPU bundle on the card against the card's bundle on the "
+                                f"CPU, image {i}: {r}")
+        neck_rel = max(float((a.cpu().float() - b.float()).abs().max() / b.float().abs().max())
+                       for a, b in zip(g.neck, c.neck))
+        worst = {k: (min if k == "overlap" else max)(r["errors"][k] for r in readings)
+                 for k in readings[0]["errors"]}
+        cross = dict(cpu_export_s=cpu_export_s, card_load_s=card_load_s, cpu_run_s=cpu_run_s,
+                     launches_on_card=launches[-1], worst=worst, neck_map_rel_err=neck_rel,
+                     limits=limits, cls_equal=all(r["cls_equal"] for r in readings),
+                     detections_card=sum(r["detections_card"] for r in readings),
+                     detections_cpu=sum(r["detections_cpu"] for r in readings))
+    finally:
+        C.RESULTS_PATH, C.STORAGE_PATH = paths
+    emit("e2e_bundle", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, method=BUNDLE_METHOD,
+         card=env["nvidia_smi"], f32=bundles["f32"]["entry"],
+         bf16=bundles["bf16"]["entry"], cpu_card=cross,
+         phase_seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("e2e_bundle: " + "; ".join(failures))
+    served = [{k: b["entry"]["serve"]["launches"].get(k, 0) for k in launches[0]}
+              for b in bundles.values()]
+    return _added(*launches, *served)
 
 
 def phase_xscale_stem(torch, images) -> list:
@@ -1909,11 +2102,15 @@ def roi_entry(torch, R, name, replaces, out, launches, tol, model=MODEL):
             q = (wy[..., :, None] * wx[..., None, :]).reshape(b, -1, h * w).to(f.dtype)
             torch.bmm(q, f.reshape(b, h * w, c))
 
+    from ood_in_object_detection_torch.ops import library as L
     from ood_in_object_detection_torch.scripts.bench_k3 import device_ms
 
     return dict(name=name, route="cuda", source="ood_in_object_detection_torch/csrc/roi_contract.cu",
                 replaces=replaces, launches=launches, max_abs_err=err,
                 ms=cuda_ms(lambda: [R.roi_contract(*a) for a in level_args]),
+                **dispatch_ms(lambda: [L.roi_contract_op(*a) for a in level_args],
+                              lambda: [L.roi_contract_cuda(*a) for a in level_args]),
+                dispatch_is="three levels, one operator call each",
                 device_ms=device_ms(lambda: [R.roi_contract(*a) for a in level_args], 20),
                 plain_ms=cuda_ms(lambda: [R.roi_contract_plain(*a) for a in level_args]),
                 **bound(moved, ops, kind),
@@ -1944,6 +2141,7 @@ def nms_entry(torch, N, shifted, valid, launches, model=None):
     (2, 8400) (640 px's anchor count): keep masks bit-equal to the plain
     version, the wrapper's time and each case's device time per phase
     (mask, sweep; torch.profiler). ``model`` tags another model's entry."""
+    from ood_in_object_detection_torch.ops import library as L
     from ood_in_object_detection_torch.scripts import bench_k1_k4 as BK
 
     cases = {"main_path": (shifted, valid)}
@@ -1974,6 +2172,8 @@ def nms_entry(torch, N, shifted, valid, launches, model=None):
                 replaces="ood_in_object_detection_tpu/ops/pallas/nms.py:65",
                 launches=launches, max_abs_err=err,
                 ms=cuda_ms(lambda: N.greedy_keep(shifted, valid, 0.7)),
+                **({} if model else dispatch_ms(lambda: L.nms_keep_op(shifted, valid, 0.7),
+                                                lambda: L.nms_keep_cuda(shifted, valid, 0.7))),
                 phase_ms=BK.k1_phase_ms(shifted, valid, 20),
                 plain_ms=cuda_ms(lambda: N.greedy_keep_plain(shifted, valid, 0.7)),
                 **bound(nbytes(shifted, valid, valid), 13.0 * pairs, "f32"),
@@ -2019,10 +2219,13 @@ def stem_modules(torch, params):
 
 def stem_timings(torch, S, m0, m1, x, dt) -> dict:
     """K4 on Conv modules ``m0``, ``m1`` and image ``x`` in ``dt``: the
-    wrapper's time (ms), the launcher's on operands folded once
+    wrapper's time (ms), the operator's against its CUDA implementation
+    called directly (dispatch_ms), the launcher's on operands folded once
     (kernel_ms), the plain version's, two cuDNN convs + F.silu with BN
     folded (library_ms), and the bound."""
     import torch.nn.functional as F
+
+    from ood_in_object_detection_torch.ops import library as L
 
     w1, bn1, w2, bn2 = S.stem_conv_params(m0, m1)
     b, _, h, w = x.shape
@@ -2042,7 +2245,11 @@ def stem_timings(torch, S, m0, m1, x, dt) -> dict:
     moved = nbytes(xi) + (w1.numel() + w2.numel()) * xi.element_size() + \
         b * c2 * (h // 4) * (w // 4) * xi.element_size()
     operands = S.k4_operands(w1, bn1, w2, bn2, dt)  # folded once, outside the timing
+    args = (xi, w1, *(bn1[k] for k in ("scale", "bias", "mean", "var")),
+            w2, *(bn2[k] for k in ("scale", "bias", "mean", "var")), dt == torch.bfloat16)
     return dict(ms=cuda_ms(lambda: S.fused_stem(xi, m0, m1, dt)),
+                **dispatch_ms(lambda: L.fused_stem_op(*args), lambda: L.fused_stem_cuda(*args),
+                              reps=20),
                 kernel_ms=cuda_ms(lambda: S.fused_stem_launch(xi, operands, c1, c2, dt)),
                 plain_ms=cuda_ms(lambda: S.fused_stem_plain(xi, w1, bn1, w2, bn2, dt)),
                 library_ms=cuda_ms(library), **bound(moved, ops, key))
@@ -2096,7 +2303,7 @@ def stem_entry(torch, S, det, images, launches):
 def phase_kernels(torch, det, det16, dist_method, images, total, eul_parts, cluster_banks):
     """Each kernel against its plain version on the main paths' tensors;
     ``total``: the launches of every main path's run (e2e, e2e_eul,
-    e2e_sweeps, e2e_serve, e2e_bf16)."""
+    e2e_sweeps, e2e_serve, e2e_bf16, e2e_bundle)."""
     from ood_in_object_detection_torch.ood.pipeline import distance_features
     from ood_in_object_detection_torch.ops import nms as N
     from ood_in_object_detection_torch.ops import roi_align as R
@@ -2938,6 +3145,8 @@ def phase_stem_parts(torch, size=(128, 160, 160)) -> list:
 
 def main() -> int:
     import argparse
+    import tempfile
+    from pathlib import Path
 
     import torch
 
@@ -2980,8 +3189,10 @@ def main() -> int:
     launches_eul, eul_parts = phase_e2e_eul(torch, det, methods["Cosine_cl_stride"], ood)
     launches_sweeps, cluster_banks, sweep_ind, sweep_ood = phase_e2e_sweeps(torch, det)
     launches_sdr, sdr_entry = phase_e2e_sdr(torch, det, sweep_ind, sweep_ood)
-    launches_serve = phase_e2e_serve(torch, det, ind, ood, env)
-    det16, launches16, step16_ms = phase_e2e_bf16(torch, det, methods, ind, ood)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as serve_root:
+        launches_serve = phase_e2e_serve(torch, det, ind, ood, env, Path(serve_root))
+        det16, launches16, step16_ms = phase_e2e_bf16(torch, det, methods, ind, ood)
+        launches_bundle = phase_e2e_bundle(torch, det, det16, Path(serve_root), env)
     images = ood[0]["images"]
     phase_reference(torch, det, images)
     phase_profile(torch, det, images, step_ms)
@@ -2989,7 +3200,8 @@ def main() -> int:
     with torch.no_grad():
         entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
                                 _added(launches, launches16, launches_eul, launches_sweeps,
-                                       launches_serve), eul_parts, cluster_banks)
+                                       launches_serve, launches_bundle), eul_parts,
+                                cluster_banks)
     entries.append(sdr_entry)
     entries += phase_e2e_families(torch)
     entries += phase_xscale_stem(torch, images)

@@ -10,8 +10,9 @@ hyperparameters are the port's own copies of the JAX package's NumPy modules
 (data/, constants.py, eval/results_writer.py, core/config.py). ``--bf16``
 runs the model with f32 parameters and bf16 compute and taps, as the JAX
 CLI's flag does. ``--benchmark`` runs one of the sweeps of
-``cli/benchmarks.py``. Flags whose features are not ported yet raise
-NotImplementedError naming their ROADMAP.md item.
+``cli/benchmarks.py``. ``--export_bundle DIR`` writes a serving bundle
+(``utils/export.py``) after the InD configuration. Flags whose features are
+not ported yet raise NotImplementedError naming their ROADMAP.md item.
 
     python -m ood_in_object_detection_torch.cli.ood_eval --ood_method MSP \\
         --ind_dataset ind.yaml --ood_datasets ood.yaml --device 0
@@ -50,7 +51,6 @@ log = logging.getLogger("ood_eval")
 # flag -> the ROADMAP.md item that will port it
 UNPORTED_FLAGS = {
     "data_parallel": "A12 (multi-GPU)",
-    "export_bundle": "A11c (a serving bundle: K1-K4 as torch.library ops for torch.export)",
     "compile_cache": "none: the eager port compiles nothing ahead of time",
 }
 
@@ -117,8 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the model in bfloat16: f32 parameters, bf16 compute and taps")
     p.add_argument("--compute_metrics", action="store_true", default=True)
     p.add_argument("--data_parallel", action="store_true", help="not ported")
-    p.add_argument("--export_bundle", default="", help="not ported")
-    p.add_argument("--export_bundle_batch", type=int, default=1)
+    p.add_argument("--export_bundle", default="",
+                   help="after the InD configuration, write a serving bundle of the detector "
+                        "and the fitted method to this directory (utils/export.py)")
+    p.add_argument("--export_bundle_batch", type=int, default=1,
+                   help="the batch size the bundle's predict step is exported at")
     p.add_argument("--compile_cache", default="", help="not ported")
     return p
 
@@ -332,6 +335,12 @@ def main(argv=None) -> List[Dict]:
     if args.benchmark:
         return run_benchmark(args, detector, method, ind_batches, log, val_batches=val_batches)
     configure_ind(args, detector, method, ind_batches, log, val_batches=val_batches)
+    if args.export_bundle:
+        from ..utils.export import export_serving_bundle
+
+        export_serving_bundle(detector, method, args.export_bundle,
+                              batch=args.export_bundle_batch, conf_thres=args.conf_thr_test)
+        log.info("serving bundle written to %s", args.export_bundle)
     if args.dump_fusion_scores:
         dump_fusion_scores(args, detector, method, log)
     rows = run_eval(args, detector, method, log)

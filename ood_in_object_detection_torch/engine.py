@@ -7,7 +7,8 @@ K1) -> RoI and exact-position taps (kernel K2) -> box clip, and returns a
 in as (B, H, W, 3), neck maps leave as (B, H/s, W/s, C) in the model's
 compute dtype (bf16 with ``dtype=torch.bfloat16``, the JAX package's
 ``Detector.create(..., dtype=jnp.bfloat16)``); boxes, confidences and
-logits leave in f32.
+logits leave in f32. ``Detector.step`` is the same step as a module with its
+thresholds fixed, which ``utils/export.py`` exports.
 """
 
 from __future__ import annotations
@@ -35,6 +36,59 @@ class PredictOutput(NamedTuple):
     @property
     def p3(self):
         return self.neck[0]
+
+
+def normalise_images(x: torch.Tensor) -> torch.Tensor:
+    """uint8 images to f32 in [0, 1] on their device; other dtypes as they
+    are. ``Detector.predict`` and a served bundle (serving.py) both take
+    uint8 through this, outside the exported step."""
+    if x.dtype == torch.uint8:
+        x = x.to(torch.float32) * torch.tensor(1.0 / 255.0, device=x.device)
+    return x
+
+
+def predict_step(model: torch.nn.Module, x: torch.Tensor, conf_thres, iou_thres: float,
+                 max_det: int, pre_nms_k: int, img_size: int, roi_samples: int) -> PredictOutput:
+    """(B, H, W, 3) float images in [0, 1] -> PredictOutput: the body of
+    ``Detector.predict`` and of the exported :class:`PredictStep`."""
+    # yolov10's raw maps are its one2one maps (a model in training
+    # returns one2many third, as the JAX model_forward reads out[0] and
+    # out[1], yolo.py:617); every family runs NMS
+    raw, neck = model(x.to(torch.float32).permute(0, 3, 1, 2).contiguous())[:2]
+    ct = torch.as_tensor(conf_thres, dtype=torch.float32, device=x.device)
+    det, logits = fused_detect(raw, model.nc, ct, iou_thres=iou_thres,
+                               max_det=max_det, pre_nms_k=pre_nms_k)
+    # level from the flat anchor index against the level boundaries
+    b0 = raw[0].shape[2] * raw[0].shape[3]
+    b1 = b0 + raw[1].shape[2] * raw[1].shape[3]
+    level = (det.anchor_idx >= b0).long() + (det.anchor_idx >= b1).long()
+    neck = tuple(f.permute(0, 2, 3, 1).contiguous() for f in neck)
+    roi, exact = roi_and_exact_batched(neck, det.boxes, det.anchor_idx, level,
+                                       img_w=img_size, samples=roi_samples)
+    # the reference RoI-aligns the UNclipped NMS boxes and clips after
+    # (detect/predict.py:176-199, utils/ops.py:96,536)
+    det = det._replace(boxes=det.boxes.clamp(0.0, float(img_size)))
+    return PredictOutput(det, logits, level, det.anchor_idx, roi, exact, neck)
+
+
+class PredictStep(torch.nn.Module):
+    """The predict step with ``conf_thres``, ``iou_thres``, ``max_det`` and
+    ``pre_nms_k`` fixed (the JAX package's ``Detector.predict_fn``, its
+    threshold baked in): ``forward`` takes f32 (B, H, W, 3) images in
+    [0, 1] and returns a PredictOutput. ``utils/export.py`` exports it."""
+
+    def __init__(self, model: torch.nn.Module, img_size: int, roi_samples: int = 0,
+                 conf_thres: float = 0.25, iou_thres: float = 0.7, max_det: int = 300,
+                 pre_nms_k: int = 1024):
+        super().__init__()
+        self.model = model
+        self.img_size, self.roi_samples = img_size, roi_samples
+        self.conf_thres, self.iou_thres = float(conf_thres), float(iou_thres)
+        self.max_det, self.pre_nms_k = max_det, pre_nms_k
+
+    def forward(self, images: torch.Tensor) -> PredictOutput:
+        return predict_step(self.model, images, self.conf_thres, self.iou_thres, self.max_det,
+                            self.pre_nms_k, self.img_size, self.roi_samples)
 
 
 @dataclasses.dataclass
@@ -80,32 +134,22 @@ class Detector:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def step(self, conf_thres: float = 0.25, iou_thres: float = 0.7, max_det: int = 300,
+             pre_nms_k: int = 1024) -> "PredictStep":
+        """The predict step as a module with its thresholds fixed: what
+        ``utils/export.py`` exports (the JAX package's ``predict_fn``)."""
+        return PredictStep(self.model, img_size=self.img_size, roi_samples=self.roi_samples,
+                           conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+                           pre_nms_k=pre_nms_k)
+
     @torch.no_grad()
     def predict(self, images, conf_thres=0.25, iou_thres: float = 0.7, max_det: int = 300,
                 pre_nms_k: int = 1024) -> PredictOutput:
         """(B, H, W, 3) uint8 (normalised here, on the device) or float images
         in [0, 1] -> PredictOutput. ``conf_thres`` may be a 0-dim tensor."""
-        x = torch.as_tensor(images).to(self.device)
-        if x.dtype == torch.uint8:
-            x = x.to(torch.float32) * torch.tensor(1.0 / 255.0, device=x.device)
-        # yolov10's raw maps are its one2one maps (a model in training
-        # returns one2many third, as the JAX model_forward reads out[0] and
-        # out[1], yolo.py:617); every family runs NMS
-        raw, neck = self.model(x.to(torch.float32).permute(0, 3, 1, 2).contiguous())[:2]
-        ct = torch.as_tensor(conf_thres, dtype=torch.float32, device=x.device)
-        det, logits = fused_detect(raw, self.nc, ct, iou_thres=iou_thres,
-                                   max_det=max_det, pre_nms_k=pre_nms_k)
-        # level from the flat anchor index against the level boundaries
-        b0 = raw[0].shape[2] * raw[0].shape[3]
-        b1 = b0 + raw[1].shape[2] * raw[1].shape[3]
-        level = (det.anchor_idx >= b0).long() + (det.anchor_idx >= b1).long()
-        neck = tuple(f.permute(0, 2, 3, 1).contiguous() for f in neck)
-        roi, exact = roi_and_exact_batched(neck, det.boxes, det.anchor_idx, level,
-                                           img_w=self.img_size, samples=self.roi_samples)
-        # the reference RoI-aligns the UNclipped NMS boxes and clips after
-        # (detect/predict.py:176-199, utils/ops.py:96,536)
-        det = det._replace(boxes=det.boxes.clamp(0.0, float(self.img_size)))
-        return PredictOutput(det, logits, level, det.anchor_idx, roi, exact, neck)
+        x = normalise_images(torch.as_tensor(images).to(self.device))
+        return predict_step(self.model, x, conf_thres, iou_thres, max_det, pre_nms_k,
+                            self.img_size, self.roi_samples)
 
     def neck_channels(self) -> Tuple[int, ...]:
         """Per-level neck channel counts (to slice roi_feats padding)."""

@@ -170,6 +170,14 @@ class DistanceOODMethod:
         if self.cluster_method in UNPORTED_CLUSTERING_METHODS:
             check_cluster_method(self.cluster_method)
 
+    def __getstate__(self):
+        # the centroid banks hold tensors on the devices that decided; a
+        # pickle (a serving bundle's ood_method.pkl) keeps the host clusters
+        # and rebuilds the bank on the serving device at first use
+        state = dict(self.__dict__)
+        state["_banks"] = {}
+        return state
+
     @staticmethod
     def from_name(name: str, cluster_method: str = "one", **kw) -> "DistanceOODMethod":
         """The method of a distance name; an SDR name gets its transform

@@ -7,7 +7,8 @@ offsetting boxes by ``cls * MAX_WH``; greedy IoU suppression in descending
 confidence order; the top ``max_det`` survivors are returned as padded
 ``Detections`` with a ``valid`` mask and each box's flat anchor index.
 
-The keep mask comes from :func:`greedy_keep`, which launches CUDA kernel K1
+The keep mask comes from :func:`greedy_keep`, which calls the operator
+``ood_torch::nms_keep`` (ops/library.py): it launches CUDA kernel K1
 (``csrc/nms_keep.cu``) for every candidate count on a CUDA tensor, and runs
 its plain PyTorch version :func:`greedy_keep_plain` on a CPU tensor. Any
 ``pre_nms_k`` is served, as the JAX package's ``_greedy_keep_tiled`` serves
@@ -20,6 +21,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from . import library
 from .boxes import box_iou, xywh2xyxy
 
 MAX_WH = 7680.0
@@ -59,30 +61,14 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
     """Greedy-NMS keep mask, (B, k, 4) f32 score-sorted class-offset boxes +
     (B, k) bool validity -> (B, k) bool.
 
-    Replaces ops/pallas/nms.py:greedy_keep_pallas. CUDA tensors launch
-    kernel K1 (csrc/nms_keep.cu) for every k; CPU tensors take
-    :func:`greedy_keep_plain`."""
+    Replaces ops/pallas/nms.py:greedy_keep_pallas. Calls the operator
+    ``ood_torch::nms_keep`` (ops/library.py): CUDA tensors launch kernel K1
+    (csrc/nms_keep.cu) for every k and count the launch in ``launches``;
+    CPU tensors take :func:`greedy_keep_plain`."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
         raise ValueError(f"greedy_keep: boxes {tuple(boxes.shape)} and valid "
                          f"{tuple(valid.shape)} must be (B, k, 4) and (B, k)")
-    b, k = valid.shape
-    if boxes.device.type == "cpu":
-        return greedy_keep_plain(boxes, valid, iou_thres)
-    from .kernels import _build
-
-    _build.require_cuda("greedy_keep", boxes=boxes, valid=valid)
-    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
-        raise TypeError(f"greedy_keep: needs f32 boxes and bool valid, got "
-                        f"{boxes.dtype} and {valid.dtype}")
-    nw = (k + 63) // 64  # the scratch mask: k * k / 8 bytes an image
-    mask = torch.empty((b, k, nw), dtype=torch.int64, device=boxes.device)
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    code = _build.launcher("nms_keep")(
-        boxes.data_ptr(), valid.data_ptr(), float(iou_thres), b, k,
-        mask.data_ptr(), keep.data_ptr(), _build.stream_handle(boxes.device))
-    greedy_keep.launches += 1
-    _build.check_launch("nms_keep", code)
-    return keep
+    return library.nms_keep_op(boxes, valid, float(iou_thres))
 
 
 greedy_keep.launches = 0

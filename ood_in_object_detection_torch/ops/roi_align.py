@@ -11,7 +11,8 @@ A uniform grid of bilinear taps is separable, so the pooled value is
 ``sum_h sum_w wy[h] * wx[w] * f[h, w, :]`` with per-axis weight vectors
 (:func:`_axis_weights`, closed form for adaptive sampling). The exact tap is
 the same sum with one-hot axis weights, so both ride one contraction per
-level: :func:`roi_contract`, which launches CUDA kernel K2
+level: :func:`roi_contract`, which calls the operator
+``ood_torch::roi_contract`` (ops/library.py): it launches CUDA kernel K2
 (``csrc/roi_contract.cu``) on CUDA tensors and runs
 :func:`roi_contract_plain` on CPU tensors.
 """
@@ -22,6 +23,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import library
 
 
 def _clip(x, lo, hi):
@@ -94,12 +97,11 @@ def roi_contract_plain(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -
 K2_MAX_CELLS = 1 << 20
 
 
-def k2_vector_path(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> bool:
-    """Raise on what kernel K2 does not take; -> True for its 16-byte path
-    (a lane loads 8 bf16 or 4 f32 channels at once), which needs a 16-byte
-    aligned map and C a multiple of 8 (bf16) or 4 (f32), False for its
-    scalar path (one channel per lane). Reads only dtypes, shapes, strides
-    and the address, so it runs on tensors of any device."""
+def k2_check(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> None:
+    """Raise on what kernel K2 does not take: a map that is not f32 or bf16,
+    axis weights that are not f32, a tensor that is not contiguous, a map
+    past ``K2_MAX_CELLS``. Reads only dtypes, shapes and strides, so it runs
+    on tensors of any device, fake ones included."""
     if fmap.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"roi_contract: kernel K2 takes f32 or bf16 maps, got {fmap.dtype}")
     if wx.dtype != torch.float32 or wy.dtype != torch.float32:
@@ -107,12 +109,21 @@ def k2_vector_path(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> bo
     for name, t in (("fmap", fmap), ("wx", wx), ("wy", wy)):
         if not t.is_contiguous():
             raise ValueError(f"roi_contract: {name} must be contiguous")
-    _, h, w, c = fmap.shape
+    _, h, w, _ = fmap.shape
     if h * w > K2_MAX_CELLS:
         raise ValueError(f"roi_contract: kernel K2 takes maps of at most {K2_MAX_CELLS} cells, "
                          f"got {h}x{w}")
+
+
+def k2_vector_path(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> bool:
+    """Raise on what kernel K2 does not take (:func:`k2_check`); -> True for
+    its 16-byte path (a lane loads 8 bf16 or 4 f32 channels at once), which
+    needs a 16-byte aligned map and C a multiple of 8 (bf16) or 4 (f32),
+    False for its scalar path (one channel per lane). Reads the map's
+    address, so it needs a tensor with data."""
+    k2_check(fmap, wx, wy)
     lanes = 8 if fmap.dtype == torch.bfloat16 else 4
-    return fmap.data_ptr() % 16 == 0 and c % lanes == 0
+    return fmap.data_ptr() % 16 == 0 and fmap.shape[3] % lanes == 0
 
 
 def roi_contract(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torch.Tensor:
@@ -121,34 +132,18 @@ def roi_contract(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torc
     (B, N2, W) f32, (B, N2, H) f32 -> (B, N2, C) f32.
 
     Replaces ops/pallas/roi.py:roi_matmul_level_two_stage (f32 maps) and
-    roi_matmul_level_pallas's store / expand variants (bf16 maps). CUDA
-    tensors launch kernel K2 (csrc/roi_contract.cu) and count the launch in
+    roi_matmul_level_pallas's store / expand variants (bf16 maps). Calls the
+    operator ``ood_torch::roi_contract`` (ops/library.py): CUDA tensors
+    launch kernel K2 (csrc/roi_contract.cu) and count the launch in
     ``launches`` (f32) or ``launches_bf16``; CPU tensors take
     :func:`roi_contract_plain`."""
     if fmap.dim() != 4 or wx.dim() != 3 or wy.dim() != 3:
         raise ValueError("roi_contract: fmap (B,H,W,C), wx (B,N2,W), wy (B,N2,H)")
-    b, h, w, c = fmap.shape
+    b, h, w, _ = fmap.shape
     if wx.shape[0] != b or wx.shape[2] != w or wy.shape != (b, wx.shape[1], h):
         raise ValueError(f"roi_contract: shapes fmap {tuple(fmap.shape)}, wx "
                          f"{tuple(wx.shape)}, wy {tuple(wy.shape)} disagree")
-    if fmap.device.type == "cpu":
-        return roi_contract_plain(fmap, wx, wy)
-    from .kernels import _build
-
-    _build.require_cuda("roi_contract", fmap=fmap, wx=wx, wy=wy)
-    vec = k2_vector_path(fmap, wx, wy)
-    n2 = wx.shape[1]
-    bf16 = fmap.dtype == torch.bfloat16
-    out = torch.empty((b, n2, c), dtype=torch.float32, device=fmap.device)
-    code = _build.launcher("roi_contract")(
-        fmap.data_ptr(), wx.data_ptr(), wy.data_ptr(), b, h, w, c, n2, int(bf16), int(vec),
-        out.data_ptr(), _build.stream_handle(fmap.device))
-    if bf16:
-        roi_contract.launches_bf16 += 1
-    else:
-        roi_contract.launches += 1
-    _build.check_launch("roi_contract", code)
-    return out
+    return library.roi_contract_op(fmap, wx, wy)
 
 
 roi_contract.launches = 0

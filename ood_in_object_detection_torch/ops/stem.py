@@ -11,8 +11,9 @@ which the JAX model runs on every inference forward, models/yolo.py:398-431).
   space-to-depth by 4, both convs refolded as k2/s1 convs over the phase
   channels with top-left zero padding, inference BN as one multiply-add in
   the compute dtype.
-- :func:`fused_stem` launches CUDA kernel K4 (``csrc/fused_stem.cu``) on CUDA
-  tensors and runs :func:`fused_stem_plain` on CPU tensors; in bf16 the
+- :func:`fused_stem` calls the operator ``ood_torch::fused_stem``
+  (ops/library.py), which launches CUDA kernel K4 (``csrc/fused_stem.cu``) on
+  CUDA tensors and runs :func:`fused_stem_plain` on CPU tensors; in bf16 the
   kernel runs on tensor cores and takes its weights in mma fragment order
   (:func:`k4_pack_bf16`), in f32 it runs on CUDA cores on conv2 weights
   regrouped into the chunks it streams (:func:`k4_pack_f32`). K4 computes the
@@ -33,6 +34,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import library
 
 BN_EPS = 1e-3
 # the widths K4 takes, multiples of 8: every scale's stem, up to yolo11x's
@@ -255,19 +258,18 @@ def fused_stem(x: torch.Tensor, conv0, conv1, dtype: torch.dtype = torch.float32
     inference: (B, C, H, W) -> (B, C2, H/4, W/4) in ``dtype``, H and W
     multiples of 4.
 
-    Replaces ops/pallas/stem.py:pallas_stem. CUDA tensors launch kernel K4
-    (csrc/fused_stem.cu) in f32 or bf16 and raise on shapes it does not take;
-    CPU tensors take :func:`fused_stem_plain`."""
+    Replaces ops/pallas/stem.py:pallas_stem. Calls the operator
+    ``ood_torch::fused_stem`` (ops/library.py): CUDA tensors launch kernel
+    K4 (csrc/fused_stem.cu) in f32 or bf16 and raise on shapes it does not
+    take; CPU tensors take :func:`fused_stem_plain`."""
     w1, bn1, w2, bn2 = stem_conv_params(conv0, conv1)
     if x.dim() != 4 or x.shape[2] % 4 or x.shape[3] % 4:
         raise ValueError(f"fused_stem: (B, C, H, W) with H, W multiples of 4, got {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return fused_stem_plain(x, w1, bn1, w2, bn2, dtype)
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_stem: K4 computes in f32 or bf16, not {dtype}")
-    c2, c1 = w2.shape[:2]
-    check_k4_shapes(x.shape, c1, c2)
-    return fused_stem_launch(x, k4_operands(w1, bn1, w2, bn2, dtype), c1, c2, dtype)
+    return library.fused_stem_op(x, w1, bn1["scale"], bn1["bias"], bn1["mean"], bn1["var"],
+                                 w2, bn2["scale"], bn2["bias"], bn2["mean"], bn2["var"],
+                                 dtype == torch.bfloat16)
 
 
 def fused_stem_launch(x: torch.Tensor, operands, c1: int, c2: int,

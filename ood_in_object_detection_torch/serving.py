@@ -10,6 +10,9 @@ steps on the device:
   knob), zero-pads the group to ``batch_size``, and runs one
   ``Detector.predict`` (K4, K1, K2 on the card) and, with a fitted OoD
   method, its per-box decisions (K3 for the distance methods);
+- ``MicroBatchServer.from_bundle`` serves a bundle of ``utils/export.py``
+  instead of a live detector: the exported step (the same kernels, as
+  operators) and the bundled fitted method, no model code;
 - each future resolves to its image's slice of the batched output; the
   padding rows are computed and dropped.
 
@@ -30,13 +33,40 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-A11C = "ROADMAP.md A11c (a serving bundle: K1-K4 as torch.library ops for torch.export)"
+from .engine import normalise_images
 
 
 @dataclass
 class _Request:
     image: np.ndarray
     future: "Future[Any]"
+
+
+class _BundleModel:
+    """Detector-shaped shim over a loaded serving bundle
+    (``utils.export.load_serving_bundle``): the ``img_size``, ``nc``,
+    ``device``, ``neck_channels()`` and ``predict()`` that MicroBatchServer
+    drives, backed by the exported predict step (weights in the program:
+    the serving process builds no model and reads no checkpoint)."""
+
+    def __init__(self, call, meta: dict, device):
+        self._call = call
+        self._meta = meta
+        self.img_size = int(meta["img_size"])
+        self.nc = int(meta["nc"])
+        self.device = torch.device(device)
+
+    def neck_channels(self):
+        return tuple(self._meta["neck_channels"])
+
+    def predict(self, images, conf_thres: float = 0.25, pre_nms_k: int = 1024):
+        """The exported step on (B, H, W, 3) images: uint8 normalised on the
+        device as ``Detector.predict`` does, outside the program (it was
+        exported on f32 images in [0, 1]). ``conf_thres`` and ``pre_nms_k``
+        are fixed in the program (bundle.json records the threshold) and
+        accepted for API parity only."""
+        x = normalise_images(torch.as_tensor(images).to(self.device))
+        return self._call(x.to(torch.float32))
 
 
 @dataclass
@@ -66,9 +96,33 @@ class MicroBatchServer:
                                       "(ROADMAP.md A12, multi-GPU)")
 
     @classmethod
-    def from_bundle(cls, path, **kw) -> "MicroBatchServer":
-        """Serving from an exported bundle waits on the bundle's export."""
-        raise NotImplementedError(f"MicroBatchServer.from_bundle is not ported yet ({A11C})")
+    def from_bundle(cls, path, device=None, **kw) -> "MicroBatchServer":
+        """Serve an ``utils.export.export_serving_bundle`` directory with no
+        model code: the batch size, the confidence threshold and the fitted
+        OoD method come from the bundle (a ``batch_size`` or ``conf_thres``
+        that differs raises, as the program is fixed at both); the program
+        runs on the card unless ``device="cpu"``; pass ``max_wait_ms`` etc.
+        through ``kw``."""
+        from .utils.export import load_serving_bundle
+
+        if kw.get("mesh") is not None:
+            raise ValueError("bundles are single-program artifacts; "
+                             "mesh serving needs a live Detector")
+        call, method, meta = load_serving_bundle(path, device=device)
+        if kw.get("batch_size", int(meta["batch"])) != int(meta["batch"]):
+            raise ValueError(
+                f"bundle was exported at batch={meta['batch']}; the exported "
+                "program is fixed-shape: re-export for another batch")
+        if abs(kw.get("conf_thres", float(meta["conf_thres"]))
+               - float(meta["conf_thres"])) > 1e-9:
+            raise ValueError(
+                f"bundle was exported at conf_thres={meta['conf_thres']}; the "
+                "threshold is fixed in the program: re-export to change it")
+        kw.setdefault("batch_size", int(meta["batch"]))
+        kw.setdefault("conf_thres", float(meta["conf_thres"]))
+        kw.setdefault("ood_method", method)
+        dev = "cuda" if device is None else device
+        return cls(detector=_BundleModel(call, meta, dev), **kw)
 
     def start(self) -> "MicroBatchServer":
         """Start the collector thread and return once it has warmed up: one

@@ -1,6 +1,7 @@
 """MicroBatchServer (serving.py) on the CPU: coalesced serving gives the
-port's direct batched predict (the mirror of tests/test_serving.py, whose
-two bundle tests wait on ROADMAP A11c); and the tools beside it,
+port's direct batched predict (the mirror of tests/test_serving.py; its
+two bundle tests are mirrored in tests/test_torch_export_bundle.py); and
+the tools beside it,
 utils/profiling.py and utils/consistency.py.
 
 The detector is a seeded yolov8n at 64 px, its BatchNorm calibrated and its
@@ -204,11 +205,12 @@ def test_serving_submit_after_stop_raises(det):
 
 
 def test_serving_unported_paths_raise(det):
-    """The bundle waits on A11c, a device mesh on A12."""
-    with pytest.raises(NotImplementedError, match="A11c"):
-        MicroBatchServer.from_bundle("bundle_dir")
+    """A device mesh waits on A12; a bundle never serves over a mesh (the
+    JAX ValueError, raised before the bundle is read)."""
     with pytest.raises(NotImplementedError, match="A12"):
         MicroBatchServer(det, mesh=object())
+    with pytest.raises(ValueError, match="mesh"):
+        MicroBatchServer.from_bundle("bundle_dir", mesh=object())
 
 
 def test_serving_stress_many_threads(det):
