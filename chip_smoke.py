@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --reference-seeds 4   # the readings of REF_LIMITS (and the rest)
     python3 chip_smoke.py --only e2e_train      # the training phase alone
+    python3 chip_smoke.py --only e2e_dp         # the data-parallel phase alone
 
 Phases, each printing one JSON line (a failure anywhere raises, and the
 script exits non-zero without printing a result):
@@ -103,6 +104,24 @@ script exits non-zero without printing a result):
    bundle exported from the CPU detector of the same weights, served on the
    card (K4, K1, K2 must launch), against the f32 bundle served on the CPU,
    image by image within REF_LIMITS.
+9b. e2e_dp (data parallelism, parallel/): e2e's detector through
+   ``Detector.predict_sharded`` on a mesh of every visible card and on
+   [cuda:0, cuda:0] (shards of 4), the counters reset just before and read
+   just after each: valid, classes, anchors and levels equal to
+   ``Detector.predict`` of the batch, floats within DP_PREDICT_LIMITS (the
+   spread printed), K4, K1 and K2 launched on every replica's card (counts
+   per card index), ms against predict's. ``cli.ood_eval --data_parallel``
+   (``--device 0,0`` on one card, so two shards gather on it; every card
+   otherwise) on e2e_serve's checkpoint and datasets: MSP and
+   Cosine_cl_stride rows equal to the runs without the flag. The batch-16 train step (yolov8l,
+   seeded, tests/test_train.py's noise batch) on a process group of
+   ``device_count()`` ranks (NCCL) and, where one card exists, of two gloo
+   ranks on it (``--device 0,0``), spawned by parallel/distributed.py: the
+   first step's loss and update against the single-process step on the
+   same global batch within DP_TRAIN_LIMITS, every rank's state equal
+   (digest), then ms a step, each rank's peak memory and the gradient
+   all-reduce's seconds and megabytes; a rank that fails fails the phase.
+   ``python3 chip_smoke.py --only e2e_dp`` runs it alone.
 10. reference: one image through the card (kernels) and through the CPU
    (plain PyTorch versions) with the same weights; maps, detections and
    taps must agree within REF_LIMITS, and each layer (the stem also
@@ -130,7 +149,7 @@ script exits non-zero without printing a result):
    carry ``eul_rank``: their numbers at the EUL rank's inputs, and K3
    ``cluster_banks``: its numbers at the sweep's fitted banks. Launch
    counts add up every main path's run (e2e, e2e_eul, e2e_sweeps, e2e_serve,
-   e2e_bf16, e2e_bundle with its serving processes); e2e_sdr's entry
+   e2e_bf16, e2e_bundle with its serving processes, e2e_dp); e2e_sdr's entry
    carries its own;
    e2e_families' entries carry their own model's counts, e2e_train's those
    of its last validation.
@@ -294,8 +313,12 @@ def counters():
 
 
 def reset_counters() -> None:
+    import collections
+
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+        if hasattr(fn, attr + "_by_device"):
+            setattr(fn, attr + "_by_device", collections.Counter())
 
 
 def read_counters() -> dict:
@@ -715,9 +738,9 @@ def phase_e2e_sweeps(torch, det):
     evals, fits = [], []
     run_eval, generate = E.run_eval, DistanceOODMethod.generate_clusters
 
-    def recording_eval(args, detector, method, logger):
+    def recording_eval(args, detector, method, logger, mesh=None):
         before, t0 = read_counters(), time.perf_counter()
-        rows = run_eval(args, detector, method, logger)
+        rows = run_eval(args, detector, method, logger, mesh)
         torch.cuda.synchronize()
         after = read_counters()
         evals.append(dict(method=method, rows=rows, seconds=time.perf_counter() - t0,
@@ -1669,6 +1692,316 @@ def phase_e2e_bundle(torch, det, det16, root, env):
     served = [{k: b["entry"]["serve"]["launches"].get(k, 0) for k in launches[0]}
               for b in bundles.values()]
     return _added(*launches, *served)
+
+
+# data parallelism (e2e_dp): predict over two meshes, cli.ood_eval
+# --data_parallel, and the batch-16 train step on a process group
+DP_KERNELS = ("greedy_keep", "roi_contract", "fused_stem")
+# predict_sharded against Detector.predict of the same batch of 8 on the
+# card: integer outputs (valid, classes, anchors, levels) equal; boxes in
+# px, confidences absolute, RoI and exact taps as a share of their largest
+# magnitude. Shards of 4 against the batch of 8 differ only where cuDNN picks
+# another algorithm for another batch size.
+DP_PREDICT_LIMITS = {"boxes_px": 1e-2, "conf": 1e-5, "taps_rel": 1e-4}
+# the data-parallel train step against the single-process step on the same
+# global batch (TRAIN_BATCH) and weights, by TRAIN_REF_LIMITS's measures:
+# loss terms (relative) and the update of all trained tensors together (L2
+# of the difference over L2 of the single-process update). Set from
+# `python3 chip_smoke.py --only e2e_dp --reference-seeds 2` (dp_spread; two
+# gloo ranks of 8 on one card, seeds 0-1; PERF.md section 6): sound
+# loss <= 7.7e-7, update 1.07e-3 and 5.32e-3 (cuDNN picks other algorithms
+# for batch 8 than for 16: with PyTorch's own convolutions the update reads
+# 5.5e-4 and 6.5e-4); each rank's BatchNorm on its own rows (the fault)
+# moves the loss by >= 4.0e-3 and the update by >= 1.05
+DP_TRAIN_LIMITS = {"loss_rel": 3e-4, "update_rel": 2e-2}
+DP_TRAIN_STEPS = 3  # timed steps after the compared one
+
+
+def read_device_counters() -> dict:
+    """{kernel: {card index: launches}} of K1, K2, K2b and K4."""
+    return {k: dict(getattr(fn, attr + "_by_device"))
+            for k, (fn, attr) in counters().items() if hasattr(fn, attr + "_by_device")}
+
+
+def state_digest(torch, state) -> str:
+    """SHA-1 of every tensor of a TrainState and its step."""
+    import hashlib
+
+    from ood_in_object_detection_torch.train import trainer as TTR
+
+    h = hashlib.sha1(str(state.step).encode())
+    for t in TTR.state_tensors(state):
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_train_rank(rank: int, world: int, devices, batch, ref_path, model_name, seed=SEED,
+                  cudnn=True, timed=DP_TRAIN_STEPS, fault="") -> dict:
+    """One rank of e2e_dp's training run (parallel/distributed.py:spawn):
+    a ``model_name`` seeded with ``seed``, shard_state and
+    make_sharded_train_step over the mesh of ``devices``; one step on this
+    rank's rows of ``batch`` held against the single-process step saved at
+    ``ref_path`` (rank 0), then ``timed`` timed steps (CUDA events on a
+    card), the gradient all-reduce's seconds, this rank's peak memory and
+    its state's digest. ``cudnn`` False runs PyTorch's own convolutions
+    (the same for any batch size); ``fault`` 'local_bn' takes each rank's
+    BatchNorm statistics over its own rows (the fault the global batch's
+    statistics exist to avoid)."""
+    import torch
+
+    from ood_in_object_detection_torch.models import build_model, init_weights
+    from ood_in_object_detection_torch.models import layers as L
+    from ood_in_object_detection_torch.parallel import device_put_batch, make_mesh
+    from ood_in_object_detection_torch.train import trainer as TTR
+
+    torch.backends.cudnn.enabled = cudnn
+    if fault == "local_bn":
+        L.active_group = lambda: (False, None)
+    mesh = make_mesh(devices=devices)
+    dev = mesh.batch_devices[rank]
+    model = build_model(model_name, nc=NC)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model.to(dev)
+    p0 = {n: p.detach().clone() for n, p in TTR.trained_parameters(model)}
+    cfg = TTR.TrainConfig()
+    state = TTR.shard_state(TTR.init_state(model, cfg), mesh)
+    timings = {}
+    step = TTR.make_sharded_train_step(model, cfg, mesh, timings=timings)
+    local = device_put_batch(batch, mesh)[0]
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state, lb = step(state, local)
+    out = dict(rank=rank, device=str(mesh.batch_devices[rank]),
+               backend=torch.distributed.get_backend(), local_batch=int(local["images"].shape[0]),
+               loss={k: float(getattr(lb, k)) for k in ("total", "box", "cls", "dfl")})
+    if rank == 0:
+        ref = torch.load(ref_path, weights_only=True)
+        out["loss_rel"] = max(abs(out["loss"][k] - v) / abs(v) for k, v in ref["loss"].items())
+        num = den = 0.0
+        for n, p in TTR.trained_parameters(model):
+            want = ref["params"][n].to(p.device) - p0[n]
+            num += float(((p.detach() - p0[n]) - want).double().pow(2).sum())
+            den += float(want.double().pow(2).sum())
+        out["update_rel"] = (num / den) ** 0.5
+    del p0
+    if timed and on_card:
+        ms = cuda_ms(lambda: step(state, local), reps=timed, warmup=0)
+    elif timed:  # a CPU rehearsal: the host's clock
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            step(state, local)
+        ms = (time.perf_counter() - t0) * 1e3 / timed
+    if timed:
+        out.update(step_ms=ms, images_per_s=len(batch["images"]) * 1000.0 / ms)
+    out.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+               all_reduce_s=timings.get("all_reduce_s", []),
+               all_reduce_mb=timings.get("all_reduce_bytes", 0) / 1e6,
+               steps=state.step, digest=state_digest(torch, state))
+    return out
+
+
+def dp_single_ref(torch, batch, path, model_name=MODEL, seed=SEED, cudnn=True):
+    """The single-process train step of a seeded ``model_name`` on the
+    global ``batch``, its loss terms and trained parameters saved at
+    ``path`` for dp_train_rank; -> (model, cfg, state) after the step."""
+    from ood_in_object_detection_torch.models import build_model, init_weights
+    from ood_in_object_detection_torch.train import trainer as TTR
+
+    model = build_model(model_name, nc=NC)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model.to(DEVICE)
+    cfg = TTR.TrainConfig()
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        state, lb = TTR.train_step(model, cfg, TTR.init_state(model, cfg), batch)
+    finally:
+        torch.backends.cudnn.enabled = True
+    torch.save(dict(loss={k: float(getattr(lb, k)) for k in ("total", "box", "cls", "dfl")},
+                    params={n: p.detach().cpu() for n, p in TTR.trained_parameters(model)}),
+               path)
+    return model, cfg, state
+
+
+def dp_train_run(torch, devices, batch, ref_path, model_name=MODEL, **kw) -> dict:
+    """spawn one rank per entry of ``devices`` (``kw`` for dp_train_rank)
+    -> the ranks' readings; ``ok``: the ranks' states equal (digests), rank
+    0's agreement within DP_TRAIN_LIMITS and finite losses."""
+    from ood_in_object_detection_torch.parallel.distributed import backend_for, spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(dp_train_rank, devices, args=(devices, batch, ref_path, model_name),
+                  kwargs=kw, join_timeout=600)
+    run = dict(devices=[str(d) for d in devices], backend=backend_for(devices), world=len(ranks),
+               seconds=time.perf_counter() - t0, ranks=ranks,
+               ranks_equal=len({r["digest"] for r in ranks}) == 1)
+    r0 = ranks[0]
+    run["ok"] = bool(run["ranks_equal"] and r0["loss_rel"] <= DP_TRAIN_LIMITS["loss_rel"]
+                     and r0["update_rel"] <= DP_TRAIN_LIMITS["update_rel"]
+                     and all(np.isfinite(list(r["loss"].values())).all() for r in ranks))
+    return run
+
+
+def dp_spread(torch, n_seeds: int) -> None:
+    """The readings DP_TRAIN_LIMITS stand on: on ``n_seeds`` seeds of the
+    weights, the batch-16 step on two gloo ranks of one card against the
+    single-process step with cuDNN (sound), without it (PyTorch's own
+    convolutions, the same arithmetic for any batch size), and with each
+    rank's BatchNorm statistics over its own rows (local_bn, the fault);
+    one line a reading, then the worst sound and the least faulty. Asserts
+    nothing."""
+    import tempfile
+    from pathlib import Path
+
+    batch = overfit_batch(TRAIN_BATCH)
+    worst = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_spread_") as tmp:
+        for s in range(n_seeds):
+            for mode in ("sound", "cudnn_off", "local_bn"):
+                ref = Path(tmp) / f"ref_{s}_{mode}.pt"
+                cudnn = mode != "cudnn_off"
+                dp_single_ref(torch, batch, ref, seed=SEED + s, cudnn=cudnn)
+                torch.cuda.empty_cache()
+                r = dp_train_run(torch, [0, 0], batch, str(ref), seed=SEED + s, cudnn=cudnn,
+                                 timed=0, fault="local_bn" if mode == "local_bn" else "")
+                r0 = r["ranks"][0]
+                emit("dp_train_reading", seed=s, mode=mode, loss_rel=r0["loss_rel"],
+                     update_rel=r0["update_rel"], ranks_equal=r["ranks_equal"])
+                w = worst.setdefault(mode, dict(loss_rel=[], update_rel=[]))
+                w["loss_rel"].append(r0["loss_rel"])
+                w["update_rel"].append(r0["update_rel"])
+    emit("dp_train_spread", seeds=n_seeds, limits=DP_TRAIN_LIMITS,
+         worst={m: {k: max(v) for k, v in worst[m].items()} for m in ("sound", "cudnn_off")},
+         fault_least={k: min(v) for k, v in worst["local_bn"].items()})
+
+
+def dp_predict_check(torch, det, images, mesh) -> dict:
+    """predict_sharded on ``mesh`` against det.predict of the same batch,
+    the kernels' launches per card index counted around the sharded run."""
+    from ood_in_object_detection_torch.parallel import batch_sharding
+
+    want = det.predict(images, conf_thres=CONF)
+    reset_counters()
+    got = det.predict_sharded(images, mesh, conf_thres=CONF)
+    torch.cuda.synchronize()
+    launches, by_device = read_counters(), read_device_counters()
+    ints = all(torch.equal(getattr(got.det, f), getattr(want.det, f))
+               for f in ("valid", "cls", "anchor_idx")) and \
+        torch.equal(got.stride_level, want.stride_level)
+    valid = want.det.valid
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    spread = dict(boxes_px=float((got.det.boxes - want.det.boxes)[valid].abs().max()),
+                  conf=float((got.det.conf - want.det.conf).abs().max()),
+                  roi_rel=rel(got.roi_feats, want.roi_feats),
+                  exact_rel=rel(got.exact_feats, want.exact_feats),
+                  neck_rel=max(rel(a, b) for a, b in zip(got.neck, want.neck)))
+    ok = ints and spread["boxes_px"] <= DP_PREDICT_LIMITS["boxes_px"] and \
+        spread["conf"] <= DP_PREDICT_LIMITS["conf"] and \
+        max(spread["roi_rel"], spread["exact_rel"]) <= DP_PREDICT_LIMITS["taps_rel"] and \
+        got.det.boxes.device == mesh.batch_devices[0]
+    shards = len(batch_sharding(mesh).devices)
+    return dict(mesh=str(mesh), shards=shards, ints_equal=ints, spread=spread, ok=ok,
+                detections=int(valid.sum()), launches=launches, launches_by_device=by_device,
+                launched_everywhere=all(
+                    sum(by_device[k].values()) == launches[k] and
+                    all(by_device[k].get(d.index, 0) for d in mesh.batch_devices)
+                    for k in DP_KERNELS),
+                sharded_ms=cuda_ms(lambda: det.predict_sharded(images, mesh, conf_thres=CONF),
+                                   reps=10),
+                predict_ms=cuda_ms(lambda: det.predict(images, conf_thres=CONF), reps=10))
+
+
+def phase_e2e_dp(torch, det, ind, ood, root, env) -> dict:
+    """Data parallelism on e2e's detector and weights: predict_sharded on a
+    mesh of every visible card and on [cuda:0, cuda:0] against
+    Detector.predict (DP_PREDICT_LIMITS; K4, K1 and K2 launched on every
+    replica's card); cli.ood_eval --data_parallel (over card 0 twice where
+    it is the only card) on e2e_serve's checkpoint and datasets, its MSP
+    and Cosine_cl_stride rows equal to the run without the flag; the
+    batch-16 train step on a process group of ``device_count()`` ranks
+    (NCCL) and, with one card, on ``--device 0,0``'s two gloo ranks,
+    against the single-process step on the same global batch
+    (DP_TRAIN_LIMITS), every rank's state equal. -> the launches of the
+    phase's predict runs."""
+    from ood_in_object_detection_torch import constants as C
+    from ood_in_object_detection_torch.cli import ood_eval as E
+    from ood_in_object_detection_torch.parallel import make_mesh
+    from ood_in_object_detection_torch.train import trainer as TTR
+
+    t_phase = time.perf_counter()
+    failures, launches = [], []
+    n_cards = torch.cuda.device_count()
+    images = ood[0]["images"]
+
+    # 1. predict over two meshes
+    predict = {}
+    for key, mesh in (("all_cards", make_mesh()), ("cuda0_twice", make_mesh(devices=[0, 0]))):
+        r = predict[key] = dp_predict_check(torch, det, images, mesh)
+        launches.append(r["launches"])
+        if not (r["ok"] and r["launched_everywhere"]):
+            failures.append(f"predict_sharded {key}: {r}")
+
+    # 2. the eval CLI with and without --data_parallel (over every card, or
+    # over card 0 twice where it is the only one: two shards either way)
+    paths = (C.RESULTS_PATH, C.STORAGE_PATH)
+    evals = {}
+    dp_device = "0,0" if n_cards == 1 else "0"
+    try:
+        for flag in (("--device", "0"), ("--device", dp_device, "--data_parallel")):
+            key = "data_parallel" if len(flag) > 2 else "single"
+            C.RESULTS_PATH, C.STORAGE_PATH = root / f"dp_{key}_results", root / f"dp_{key}_storage"
+            for m in ("MSP", "Cosine_cl_stride"):
+                before, t0 = read_counters(), time.perf_counter()
+                (row,) = E.main(["--ood_method", m, "--model_path", str(root / "v8l_serve"),
+                                 "--ind_dataset", str(root / "ind" / "sweep_ood.yaml"),
+                                 "--ood_datasets", str(root / "ood" / "sweep_ood.yaml"),
+                                 "--img_size", str(IMG), "--batch_size", str(BATCH),
+                                 "--conf_thr_train", str(CONF), "--conf_thr_test", str(CONF),
+                                 "--name", f"chip_smoke_dp_{key}", *flag])
+                torch.cuda.synchronize()
+                launches.append(_delta(before))
+                evals.setdefault(m, {})[key] = dict(
+                    seconds=time.perf_counter() - t0, device=flag[1],
+                    owod={k: row[k] for k in row if k.endswith("(COOD)")})
+    finally:
+        C.RESULTS_PATH, C.STORAGE_PATH = paths
+    for m, r in evals.items():
+        a, b = r["data_parallel"]["owod"], r["single"]["owod"]
+        r["equal"] = a.keys() == b.keys() and all(
+            np.isclose(a[k], b[k], rtol=1e-5, atol=1e-7) for k in a)
+        if not r["equal"] or len(a) != 4:
+            failures.append(f"ood_eval --data_parallel {m}: {a} against {b}")
+
+    # 3. the train step: single process, then the process groups
+    batch = overfit_batch(TRAIN_BATCH)
+    ref_path = root / "dp_train_ref.pt"
+    model, cfg, state = dp_single_ref(torch, batch, ref_path)
+    single_ms = cuda_ms(lambda: TTR.train_step(model, cfg, state, batch),
+                        reps=DP_TRAIN_STEPS, warmup=0)
+    del model, state
+    torch.cuda.empty_cache()
+    train = {"single_step_ms": single_ms}
+    worlds = [("nccl_all_cards", list(range(n_cards)))]
+    if n_cards == 1:
+        worlds.append(("gloo_cuda0_twice", [0, 0]))
+    for key, devices in worlds:
+        try:
+            r = train[key] = dp_train_run(torch, devices, batch, str(ref_path))
+        except Exception as e:  # noqa: BLE001 (a rank that fails fails the phase)
+            failures.append(f"train {key}: {e}")
+            continue
+        if not r["ok"]:
+            failures.append(f"train {key}: {r}")
+    emit("e2e_dp", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, cards=n_cards,
+         card=env["nvidia_smi"], predict=predict, ood_eval=evals, train_batch=TRAIN_BATCH,
+         train=train, predict_limits=DP_PREDICT_LIMITS, train_limits=DP_TRAIN_LIMITS,
+         phase_seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("e2e_dp: " + "; ".join(failures))
+    return _added(*launches)
 
 
 def phase_xscale_stem(torch, images) -> list:
@@ -3155,10 +3488,12 @@ def main() -> int:
                     help="only take the card-vs-CPU reference readings of yolov8l and the "
                          "families on N seeds, sound and with a fault (reference_spread, "
                          "train_spread), and print no result")
-    ap.add_argument("--only", choices=["e2e_train"], default="",
-                    help="run this phase alone (after env and build; e2e_train on a "
-                         "detector of its own), print its kernel entries and no result; "
-                         "with --reference-seeds, take only its readings")
+    ap.add_argument("--only", choices=["e2e_train", "e2e_dp"], default="",
+                    help="run this phase alone (after env and build, on a detector of its "
+                         "own; e2e_dp with e2e_serve's checkpoint and datasets written "
+                         "first), print its kernel entries (e2e_train) and no result; with "
+                         "--reference-seeds, take only that phase's readings (train_spread, "
+                         "dp_spread)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one CUDA card",
@@ -3173,6 +3508,9 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          kernels=[{k: b[k] for k in ("name", "seconds")} for b in builds],
          nvcc_flags=" ".join(_build.NVCC_FLAGS))
+    if args.reference_seeds and args.only == "e2e_dp":
+        dp_spread(torch, args.reference_seeds)
+        return 0
     if args.reference_seeds:
         if not args.only:
             reference_spread(torch, args.reference_seeds)
@@ -3185,6 +3523,21 @@ def main() -> int:
         emit("done", seconds=time.perf_counter() - t_start)
         print(json.dumps({"kernels": entries, "card": env["nvidia_smi"]}), flush=True)
         return 0
+    if args.only == "e2e_dp":
+        from ood_in_object_detection_torch.core.checkpoint import save_checkpoint
+
+        rng = np.random.default_rng(SEED)
+        ind_imgs, ood_imgs = make_batches(rng, 2), make_batches(rng, 1)
+        det = family_detector(torch, MODEL, ind_imgs + ood_imgs)
+        ind, ood = label_batches(det, ind_imgs), label_batches(det, ood_imgs, unknown_every=3)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as root:
+            root = Path(root)
+            save_checkpoint(root / "v8l_serve", det.model, {"name": "v8l_serve", "nc": NC}, MODEL)
+            write_dataset(root / "ind", ind)
+            write_dataset(root / "ood", ood)
+            phase_e2e_dp(torch, det, ind, ood, root, env)
+        emit("done", seconds=time.perf_counter() - t_start)
+        return 0
     det, methods, ind, ood, launches, step_ms = phase_e2e(torch)
     launches_eul, eul_parts = phase_e2e_eul(torch, det, methods["Cosine_cl_stride"], ood)
     launches_sweeps, cluster_banks, sweep_ind, sweep_ood = phase_e2e_sweeps(torch, det)
@@ -3193,6 +3546,7 @@ def main() -> int:
         launches_serve = phase_e2e_serve(torch, det, ind, ood, env, Path(serve_root))
         det16, launches16, step16_ms = phase_e2e_bf16(torch, det, methods, ind, ood)
         launches_bundle = phase_e2e_bundle(torch, det, det16, Path(serve_root), env)
+        launches_dp = phase_e2e_dp(torch, det, ind, ood, Path(serve_root), env)
     images = ood[0]["images"]
     phase_reference(torch, det, images)
     phase_profile(torch, det, images, step_ms)
@@ -3200,7 +3554,7 @@ def main() -> int:
     with torch.no_grad():
         entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
                                 _added(launches, launches16, launches_eul, launches_sweeps,
-                                       launches_serve, launches_bundle), eul_parts,
+                                       launches_serve, launches_bundle, launches_dp), eul_parts,
                                 cluster_banks)
     entries.append(sdr_entry)
     entries += phase_e2e_families(torch)

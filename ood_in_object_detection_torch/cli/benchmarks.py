@@ -41,7 +41,8 @@ def check_sweep(name: str) -> None:
         raise ValueError(f"unknown benchmark {name}")
 
 
-def run_benchmark(args, detector, method, ind_batches, logger, val_batches=None) -> List[Dict]:
+def run_benchmark(args, detector, method, ind_batches, logger, val_batches=None,
+                  mesh=None) -> List[Dict]:
     """Run sweep ``args.benchmark`` and write its rows to
     ``RESULTS_PATH/<name>_<args.name>``; -> the rows."""
     from .ood_eval import build_val_batches, configure_ind, run_eval
@@ -55,8 +56,8 @@ def run_benchmark(args, detector, method, ind_batches, logger, val_batches=None)
         if local_args.which_split in ("val", "train_val") and val_batches is None:
             val_batches = build_val_batches(args)  # the sweep may visit val splits
         configure_ind(local_args, detector, local_method, ind_batches, logger,
-                      val_batches=val_batches)
-        rows.extend(run_eval(local_args, detector, local_method, logger))
+                      val_batches=val_batches, mesh=mesh)
+        rows.extend(run_eval(local_args, detector, local_method, logger, mesh))
 
     if name in ("best_methods", "logits_methods"):
         for m_name in C.BENCHMARKS[name]:
@@ -91,11 +92,12 @@ def run_benchmark(args, detector, method, ind_batches, logger, val_batches=None)
                                      args.temperature_odin, device=detector.device)
             full_run(a, m)
     elif name == "conf_thr_test":
-        configure_ind(args, detector, method, ind_batches, logger, val_batches=val_batches)
+        configure_ind(args, detector, method, ind_batches, logger, val_batches=val_batches,
+                      mesh=mesh)
         for v in C.BENCHMARKS["conf_thr_test"]:
             a = deepcopy(args)
             a.conf_thr_test = v
-            rows.extend(run_eval(a, detector, method, logger))
+            rows.extend(run_eval(a, detector, method, logger, mesh))
     elif name == "fusion_strategies":
         fusion_names, strategies = C.BENCHMARKS["fusion_strategies"]
         for f_name in fusion_names:
@@ -105,26 +107,27 @@ def run_benchmark(args, detector, method, ind_batches, logger, val_batches=None)
                                  device=detector.device)
             a0 = deepcopy(args)
             a0.ood_method = f_name
-            configure_ind(a0, detector, m, ind_batches, logger, val_batches=val_batches)
+            configure_ind(a0, detector, m, ind_batches, logger, val_batches=val_batches, mesh=mesh)
             for strat in strategies:
                 m.strategy = strat
                 a = deepcopy(a0)
                 a.fusion_strategy = strat
-                rows.extend(run_eval(a, detector, m, logger))
+                rows.extend(run_eval(a, detector, m, logger, mesh))
     elif name == "unk_loc_enhancement":
         grid_spec = C.BENCHMARKS["unk_loc_enhancement"][0]
         keys = list(grid_spec)
         prior_mode = CUSTOM_HYP.BENCHMARK_MODE
         CUSTOM_HYP.BENCHMARK_MODE = True
         try:
-            configure_ind(args, detector, method, ind_batches, logger, val_batches=val_batches)
+            configure_ind(args, detector, method, ind_batches, logger, val_batches=val_batches,
+                      mesh=mesh)
             for combo in itertools.product(*grid_spec.values()):
                 for k, v in zip(keys, combo):
                     set_by_dotted_path(CUSTOM_HYP, k, v)
                 CUSTOM_HYP.unk.USE_UNK_ENHANCEMENT = True
                 a = deepcopy(args)
                 a.enhanced_unk_localization = True
-                rows.extend(run_eval(a, detector, method, logger))
+                rows.extend(run_eval(a, detector, method, logger, mesh))
         finally:
             CUSTOM_HYP.BENCHMARK_MODE = prior_mode
 

@@ -11,11 +11,15 @@ hyperparameters are the port's own copies of the JAX package's NumPy modules
 runs the model with f32 parameters and bf16 compute and taps, as the JAX
 CLI's flag does. ``--benchmark`` runs one of the sweeps of
 ``cli/benchmarks.py``. ``--export_bundle DIR`` writes a serving bundle
-(``utils/export.py``) after the InD configuration. Flags whose features are
-not ported yet raise NotImplementedError naming their ROADMAP.md item.
+(``utils/export.py``) after the InD configuration. ``--data_parallel``
+predicts each batch over a mesh (parallel/mesh.py; the JAX CLI's
+ood_eval.py:338-346): every visible card, ``--device``'s first, or the
+entries of a comma list (``--device 0,1``; ``cpu,cpu`` on the CPU); the
+batch must divide over it. Flags whose features are not ported yet raise
+NotImplementedError naming their ROADMAP.md item.
 
     python -m ood_in_object_detection_torch.cli.ood_eval --ood_method MSP \\
-        --ind_dataset ind.yaml --ood_datasets ood.yaml --device 0
+        --ind_dataset ind.yaml --ood_datasets ood.yaml --device 0 [--data_parallel]
 """
 
 from __future__ import annotations
@@ -50,7 +54,6 @@ log = logging.getLogger("ood_eval")
 
 # flag -> the ROADMAP.md item that will port it
 UNPORTED_FLAGS = {
-    "data_parallel": "A12 (multi-GPU)",
     "compile_cache": "none: the eager port compiles nothing ahead of time",
 }
 
@@ -68,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", default="",
                    help="checkpoint dir (core/checkpoint.py): its meta.json names the model")
     p.add_argument("--device", default="0",
-                   help="CUDA device index, or 'cpu' for the plain PyTorch versions")
+                   help="CUDA device index, or 'cpu' for the plain PyTorch versions; with "
+                        "--data_parallel a comma list names the mesh's entries (0,1 or cpu,cpu)")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--workers", type=int, default=2)
     p.add_argument("--name", default="prueba")
@@ -116,7 +120,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="run the model in bfloat16: f32 parameters, bf16 compute and taps")
     p.add_argument("--compute_metrics", action="store_true", default=True)
-    p.add_argument("--data_parallel", action="store_true", help="not ported")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="predict each batch data parallel over a mesh: every visible card "
+                        "(--device's first) or --device's comma list; --batch_size must "
+                        "divide over it")
     p.add_argument("--export_bundle", default="",
                    help="after the InD configuration, write a serving bundle of the detector "
                         "and the fitted method to this directory (utils/export.py)")
@@ -139,13 +146,43 @@ def check_ported(args) -> None:
 
 
 def torch_device(spec: str) -> torch.device:
-    """'cpu' or a CUDA index; a CUDA device that is missing raises."""
+    """'cpu' or a CUDA index (the first entry of a comma list); a CUDA
+    device that is missing raises. A card becomes the current one, where
+    the kernels launch."""
+    spec = str(spec).split(",")[0].strip()
     if spec == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(f"--device {spec}: CUDA is not available (pass --device cpu "
                            "to run the plain PyTorch versions on the CPU)")
-    return torch.device(f"cuda:{int(spec)}")
+    dev = torch.device(f"cuda:{int(spec)}")
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def data_parallel_mesh(args):
+    """The mesh of ``--data_parallel`` (None without it): ``--device``'s
+    comma list, or one entry and every other visible card after it (the
+    CPU alone under ``--device cpu``). The first entry is the detector's
+    device, where the outputs gather. ``--batch_size`` must divide over the
+    mesh (ValueError; the JAX CLI asserts it). Several entries without
+    ``--data_parallel`` raise ValueError."""
+    from ..parallel.mesh import make_multislice_mesh, parse_devices, visible_cards
+
+    entries = parse_devices(args.device)
+    if not args.data_parallel:
+        if len(entries) > 1:
+            raise ValueError(f"--device {args.device}: several entries need --data_parallel")
+        return None
+    if len(entries) == 1 and entries[0].type == "cuda":
+        entries += [d for d in visible_cards() if d != entries[0]]
+    mesh = make_multislice_mesh(model=1, devices=entries)
+    n = len(mesh.batch_devices)
+    if args.batch_size % n:
+        raise ValueError(f"--batch_size {args.batch_size} must divide over the mesh's {n} "
+                         "devices")
+    log.info("data-parallel over %s", mesh)
+    return mesh
 
 
 def cache_paths(args, method) -> Dict[str, Path]:
@@ -197,12 +234,12 @@ def build_val_batches(args) -> list:
     return _batches(args, load_dataset(args, args.ind_dataset, "val", args.owod_task_ind))
 
 
-def _load_or_extract(args, detector, method, batches, cache_file, logger):
+def _load_or_extract(args, detector, method, batches, cache_file, logger, mesh=None):
     if args.load_ind_activations and cache_file.exists():
         logger.info("loaded InD activations from %s", cache_file)
         return pickle.loads(cache_file.read_bytes())
     t0 = time.perf_counter()
-    acts = extract_ind_activations(detector, batches, method, args.conf_thr_train)
+    acts = extract_ind_activations(detector, batches, method, args.conf_thr_train, mesh=mesh)
     logger.info("extracted InD activations in %.1fs", time.perf_counter() - t0)
     cache_file.write_bytes(pickle.dumps(acts))
     return acts
@@ -223,7 +260,8 @@ def _concat_acts(a, b):
     return {k: cat(a[k], b[k]) for k in a}
 
 
-def configure_ind(args, detector, method, batches, logger, val_batches=None) -> None:
+def configure_ind(args, detector, method, batches, logger, val_batches=None,
+                  mesh=None) -> None:
     """InD pipeline with disk caching (reference
     execute_pipeline_for_in_distribution_configuration, ood_evaluation.py:398):
     clusters always come from the train activations; the threshold scores
@@ -235,7 +273,7 @@ def configure_ind(args, detector, method, batches, logger, val_batches=None) -> 
         return {id(m): v for m, v in zip(leaves, acts.values())}
 
     acts = by_leaf(_load_or_extract(args, detector, method, batches,
-                                    paths["activations"], logger))
+                                    paths["activations"], logger, mesh))
     if args.which_split == "train":
         score_acts = acts
     else:
@@ -244,7 +282,7 @@ def configure_ind(args, detector, method, batches, logger, val_batches=None) -> 
         val_file = paths["activations"].with_name(
             paths["activations"].name.replace(".pkl", "_val.pkl"))
         acts_val = by_leaf(_load_or_extract(args, detector, method, val_batches,
-                                            val_file, logger))
+                                            val_file, logger, mesh))
         score_acts = acts_val if args.which_split == "val" else _concat_acts(acts, acts_val)
 
     clusters_loaded = False
@@ -277,7 +315,7 @@ def _dataset_key(yaml_name: str) -> str:
     return "coco_ood"
 
 
-def run_eval(args, detector, method, logger) -> List[Dict]:
+def run_eval(args, detector, method, logger, mesh=None) -> List[Dict]:
     row = method_info_row(method, args.which_split, args.conf_thr_train,
                           args.conf_thr_test, args.tpr_thr, args.fusion_strategy)
     for ds_path in args.ood_datasets:
@@ -291,7 +329,7 @@ def run_eval(args, detector, method, logger) -> List[Dict]:
         metrics = evaluate_method(detector, batches, method, known, names,
                                   conf_thr_test=args.conf_thr_test,
                                   enhanced_unk_localization=args.enhanced_unk_localization,
-                                  logger=logger, visualize_dir=vis_dir)
+                                  logger=logger, visualize_dir=vis_dir, mesh=mesh)
         logger.info("%s -> %s", ds.yaml_name, metrics)
         fill_dataset_results(row, _dataset_key(ds.yaml_name), metrics, args.owod_task_ood)
     row = finalize_row(row, f"{args.model_version}{args.model}", vars(args))
@@ -299,7 +337,7 @@ def run_eval(args, detector, method, logger) -> List[Dict]:
     return [row]
 
 
-def dump_fusion_scores(args, detector, method, logger) -> None:
+def dump_fusion_scores(args, detector, method, logger, mesh=None) -> None:
     """Each fusion member's per-box INDness, the fused decision, classes and
     confidences on the first OoD dataset -> ``np.savez`` at
     --dump_fusion_scores (the JAX CLI's ood_eval.py:380-394)."""
@@ -307,7 +345,7 @@ def dump_fusion_scores(args, detector, method, logger) -> None:
         raise ValueError("--dump_fusion_scores needs a fusion-... method")
     ds = load_dataset(args, args.ood_datasets[0], args.ood_split, args.owod_task_ood)
     data = collect_fusion_member_indness(detector, _batches(args, ds), method,
-                                         conf_thr_test=args.conf_thr_test)
+                                         conf_thr_test=args.conf_thr_test, mesh=mesh)
     Path(args.dump_fusion_scores).parent.mkdir(parents=True, exist_ok=True)
     np.savez(args.dump_fusion_scores, **data)
     logger.info("fusion member scores -> %s", args.dump_fusion_scores)
@@ -317,6 +355,7 @@ def main(argv=None) -> List[Dict]:
     args = build_parser().parse_args(argv)
     check_ported(args)
     logging.basicConfig(level=logging.INFO)
+    mesh = data_parallel_mesh(args)
     if args.remove_orphans:
         CUSTOM_HYP.clusters.REMOVE_ORPHANS = True
     ind = load_dataset(args, args.ind_dataset, args.ind_split, args.owod_task_ind)
@@ -333,8 +372,9 @@ def main(argv=None) -> List[Dict]:
     val_batches = build_val_batches(args) if args.which_split in ("val", "train_val") else None
     ind_batches = _batches(args, ind)
     if args.benchmark:
-        return run_benchmark(args, detector, method, ind_batches, log, val_batches=val_batches)
-    configure_ind(args, detector, method, ind_batches, log, val_batches=val_batches)
+        return run_benchmark(args, detector, method, ind_batches, log, val_batches=val_batches,
+                             mesh=mesh)
+    configure_ind(args, detector, method, ind_batches, log, val_batches=val_batches, mesh=mesh)
     if args.export_bundle:
         from ..utils.export import export_serving_bundle
 
@@ -342,8 +382,8 @@ def main(argv=None) -> List[Dict]:
                               batch=args.export_bundle_batch, conf_thres=args.conf_thr_test)
         log.info("serving bundle written to %s", args.export_bundle)
     if args.dump_fusion_scores:
-        dump_fusion_scores(args, detector, method, log)
-    rows = run_eval(args, detector, method, log)
+        dump_fusion_scores(args, detector, method, log, mesh)
+    rows = run_eval(args, detector, method, log, mesh)
     out = append_results(rows, C.RESULTS_PATH, args.name)
     log.info("results written to %s", out)
     return rows

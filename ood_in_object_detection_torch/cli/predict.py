@@ -6,7 +6,8 @@ source pixels, ``Results`` saved as images, txt and JSON).
 Sources are image files, directories or globs. Each group of
 ``--batch_size`` images is letterboxed, the last group zero-padded up to the
 batch, and run as one predict step (``engine.Detector.predict``: K4, K1 and
-K2 on the card); a fitted OoD method (``--ood_method`` with the artifacts a
+K2 on the card; with ``--data_parallel`` ``Detector.predict_sharded`` over
+a mesh, as ``cli.ood_eval`` builds it); a fitted OoD method (``--ood_method`` with the artifacts a
 ``cli.ood_eval`` run writes) adds a verdict per box (K3 for the distance
 methods). The outputs keep the JAX CLI's formats: ``<stem>_pred.jpg``,
 ``<stem>.txt`` (``cls cx cy w h conf`` normalized to the source image, a
@@ -36,7 +37,7 @@ import torch
 
 from .. import constants as C
 from .factory import resolve_model_name
-from .ood_eval import torch_device
+from .ood_eval import data_parallel_mesh, torch_device
 
 log = logging.getLogger("predict")
 
@@ -44,7 +45,6 @@ IMG_SUFFIXES = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".tif", ".tiff"}
 
 # flag -> the ROADMAP.md item that will port it
 UNPORTED_FLAGS = {
-    "data_parallel": "A12 (multi-GPU)",
     "compile_cache": "none: the eager port compiles nothing ahead of time",
 }
 
@@ -63,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nc", type=int, default=80,
                    help="class count when not carried by a checkpoint")
     p.add_argument("--device", default="0",
-                   help="CUDA device index, or 'cpu' for the plain PyTorch versions")
+                   help="CUDA device index, or 'cpu' for the plain PyTorch versions; with "
+                        "--data_parallel a comma list names the mesh's entries (0,1 or cpu,cpu)")
     p.add_argument("--img_size", type=int, default=640)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--conf", type=float, default=0.25)
@@ -100,7 +101,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=C.IND_INFO_CREATION_OPTIONS)
     p.add_argument("--cluster_method", default="one")
     p.add_argument("--cluster_optimization_metric", default="silhouette")
-    p.add_argument("--data_parallel", action="store_true", help="not ported")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard each predict batch over a mesh: every visible card (--device's "
+                        "first) or --device's comma list; --batch_size must divide over it")
     p.add_argument("--compile_cache", default="", help="not ported")
     return p
 
@@ -261,6 +264,7 @@ def main(argv=None) -> list:
     args = build_parser().parse_args(argv)
     check_ported(args)
     logging.basicConfig(level=logging.INFO)
+    mesh = data_parallel_mesh(args)
     from PIL import Image
 
     from ..data.letterbox import scale_boxes_back
@@ -271,7 +275,7 @@ def main(argv=None) -> list:
     names = load_class_names(args, nc)
     ood_method = load_ood_method(args)
     neck_ch = detector.neck_channels()
-    step = _predict_step(detector, args.conf, iou_thres=args.iou, max_det=args.max_det)
+    step = _predict_step(detector, args.conf, mesh, iou_thres=args.iou, max_det=args.max_det)
     save_dir = Path(args.save_dir)
     if not args.no_save or args.save_txt or args.save_json:
         save_dir.mkdir(parents=True, exist_ok=True)

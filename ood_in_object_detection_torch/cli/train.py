@@ -8,19 +8,28 @@ and tensorboard scalars, checkpoints on the validation cadence.
         --model l --epochs 100 --batch_size 16 --device 0
 
 It runs on the card (``--device 0``) unless asked for the CPU (``--device
-cpu``, the plain PyTorch versions of the kernels). ``--dtype bfloat16``
-trains with f32 parameters and bf16 compute, as the JAX CLI does, without
-loss scaling. Validation predicts with the EMA weights at conf 0.001
-through ``Detector.predict`` (kernels K4, K1 and K2 on the card).
+cpu``, the plain PyTorch versions of the kernels). A comma list trains data
+parallel, one rank (process) per entry, as the reference's ultralytics
+trainer does: ``--device 0,1,2,3`` on four cards (NCCL), ``--device 0,0``
+or ``cpu,cpu`` as two gloo ranks on one card or the CPU. Each step is the
+single-process run's step on the same global batch (JAX's global step:
+BatchNorm statistics and the loss normalizer over it, the gradient summed
+over the ranks; train/trainer.py:make_sharded_train_step): every rank
+builds the same batches, in the same order, and takes its rows of each;
+rank 0 alone validates and writes results.csv, the tensorboard events and
+the checkpoints. ``--dtype bfloat16`` trains with f32 parameters and bf16
+compute, as the JAX CLI does, without loss scaling. Validation predicts
+with the EMA weights at conf 0.001 through ``Detector.predict`` (kernels
+K4, K1 and K2 on the card).
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import contextlib
 import copy
 import logging
+import sys
 import time
 import types
 from pathlib import Path
@@ -36,7 +45,6 @@ log = logging.getLogger("train")
 UNPORTED_FLAGS = {
     "compile_cache": "none: the eager port compiles nothing ahead of time",
 }
-BATCH_KEYS = ("images", "gt_labels", "gt_bboxes", "gt_mask")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -104,7 +112,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="classification-model .pt whose backbone (layers 0-6) is grafted "
                         "before training (reference custom_training.py:129-133)")
     p.add_argument("--device", default="0",
-                   help="CUDA device index, or 'cpu' for the plain PyTorch versions")
+                   help="CUDA device index, or 'cpu' for the plain PyTorch versions; a comma "
+                        "list (0,1,2,3; 0,0; cpu,cpu) trains data parallel, one rank an entry")
     p.add_argument("--compile_cache", default="", help="not ported")
     return p
 
@@ -115,51 +124,47 @@ def check_ported(args) -> None:
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP.md: {item})")
 
 
-def prefetch_to_device(batches, device: torch.device, size: int = 2):
-    """Batches from the host batcher as tensors on ``device`` (through
-    trainer.batch_to). On the card, up to ``size`` batches ahead are copied
-    from pinned memory on a side stream; each is handed over once its copy
-    is done (the current stream waits on its event)."""
-    from ..train.trainer import batch_to
-
-    if device.type != "cuda" or size <= 0:
-        for b in batches:
-            yield batch_to(b, device)
-        return
-    side = torch.cuda.Stream(device)
-    pending = collections.deque()
-
-    def ready(item):
-        dev, done = item
-        cur = torch.cuda.current_stream(device)
-        cur.wait_event(done)
-        for t in dev.values():
-            t.record_stream(cur)
-        return dev
-
-    for b in batches:
-        host = {k: torch.from_numpy(np.ascontiguousarray(b[k])).pin_memory() for k in BATCH_KEYS}
-        with torch.cuda.stream(side):
-            dev = batch_to(host, device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        pending.append((dev, done))
-        if len(pending) > size:
-            yield ready(pending.popleft())
-    while pending:
-        yield ready(pending.popleft())
-
-
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     check_ported(args)
+    from ..parallel.mesh import parse_devices
 
+    entries = parse_devices(args.device)
+    if len(entries) == 1:
+        return run(args)
+    if args.val_only:
+        raise SystemExit("--val_only runs on one device")
+    if args.batch_size % len(entries):
+        raise ValueError(f"--batch_size {args.batch_size} must divide over the "
+                         f"{len(entries)} ranks of --device {args.device}")
+    from ..parallel.distributed import spawn
+
+    log.info("data-parallel training: %d ranks on %s", len(entries),
+             ",".join(map(str, entries)))
+    spawn(_train_rank, entries, args=(argv,))
+
+
+def _train_rank(rank: int, world: int, argv) -> None:
+    """One rank of a data-parallel run (parallel/distributed.py:spawn)."""
+    from ..parallel.mesh import make_mesh, parse_devices
+
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING)
+    run(args, make_mesh(devices=parse_devices(args.device)), rank)
+
+
+def run(args, mesh=None, rank: int = 0) -> None:
+    """The training run of ``args`` in this process: as rank ``rank`` of
+    ``mesh`` (one rank per entry, the process group up), or on a mesh of
+    ``--device`` alone, as the JAX CLI always trains on a mesh."""
     from ..core.checkpoint import load_checkpoint, restore_train_state, save_checkpoint
     from ..data import DetectionDataset, PaddedBatcher
     from ..models import build_model, init_weights
+    from ..parallel.mesh import make_mesh, prefetch_to_device
     from ..train.trainer import (TrainConfig, backbone_freeze_prefixes, init_state,
-                                 lr_schedule, train_step)
+                                 lr_schedule, make_sharded_train_step, shard_state)
     from .factory import resolve_model_name
     from .ood_eval import torch_device
 
@@ -169,7 +174,9 @@ def main(argv=None) -> None:
             "hub-pretrained .pt downloads (custom_training.py:16,31); this "
             "rebuild has no network access and no v5/v6 graph specs — "
             "hub-pretrained models are unavailable (see PARITY.md N/A list).")
-    device = torch_device(args.device)
+    mesh = mesh or make_mesh(devices=[torch_device(args.device)])
+    device = mesh.batch_devices[rank]
+    lead = rank == 0  # validates and writes
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     ds = DetectionDataset.from_yaml(args.dataset, split="train",
                                     owod_task=args.owod_task or None,
@@ -231,13 +238,16 @@ def main(argv=None) -> None:
             grafted = graft_classification_backbone(model, args.pretrained_backbone)
             log.info("grafted %d backbone tensors from %s", grafted, args.pretrained_backbone)
         state = init_state(model.to(device), cfg)
+    state = shard_state(state, mesh)
+    step = make_sharded_train_step(model, cfg, mesh)
     if hasattr(batcher, "epoch"):
         batcher.epoch = start_epoch  # keep close_mosaic aligned on resume
     lr_fn = lr_schedule(cfg)
     run_dir = Path(args.out_dir) / args.name
-    run_dir.mkdir(parents=True, exist_ok=True)
     csv_path = run_dir / "results.csv"
-    if not csv_path.exists() or start_epoch == 0:
+    if lead:
+        run_dir.mkdir(parents=True, exist_ok=True)
+    if lead and (not csv_path.exists() or start_epoch == 0):
         # per-epoch training curve (reference utils/callbacks writes
         # results.csv + tensorboard scalars; the CSV is the durable artifact)
         csv_path.write_text("epoch,time_s,train/box_loss,train/cls_loss,"
@@ -245,28 +255,30 @@ def main(argv=None) -> None:
                             "metrics/mAP50,metrics/mAP50-95\n")
     # tensorboard events beside the CSV (reference callbacks/tensorboard.py:
     # 8-97), written without importing tensorboard
-    tb = tb_events.EventWriter(run_dir) if not args.no_tensorboard else None
+    tb = tb_events.EventWriter(run_dir) if lead and not args.no_tensorboard else None
     try:
         for epoch in range(start_epoch, args.epochs):
             t0 = time.perf_counter()
             losses = []
             prof_ctx = contextlib.nullcontext()
-            if args.profile and epoch == start_epoch:
+            profile = lead and args.profile and epoch == start_epoch
+            if profile:
                 from ..utils.profiling import trace
 
                 prof_ctx = trace(args.profile)
-            host = ({k: batch[k] for k in BATCH_KEYS} for batch in batcher)
             with prof_ctx:  # the trace is written even if a step raises
-                for placed in prefetch_to_device(host, device, size=args.prefetch):
-                    state, lb = train_step(model, cfg, state, placed)
+                for placed in prefetch_to_device(batcher, mesh, size=args.prefetch):
+                    state, lb = step(state, placed)
                     losses.append(lb)
-            if args.profile and epoch == start_epoch:
+            if profile:
                 log.info("profiler trace written to %s", args.profile)
             mean = {k: float(torch.stack([getattr(lb, k) for lb in losses]).mean())
                     for k in ("total", "box", "cls", "dfl")}
             dt = time.perf_counter() - t0
             log.info("epoch %d: loss=%.4f (%.1fs)", epoch, mean["total"], dt)
             map50 = map5095 = float("nan")
+            if not lead:
+                continue
             if (epoch + 1) % max(args.val_every, 1) == 0 or epoch == args.epochs - 1:
                 if val_ds is not None and len(val_ds) and not args.do_not_val_during_training:
                     metrics = validate(model, state, val_ds, args, nc)

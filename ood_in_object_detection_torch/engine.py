@@ -13,8 +13,11 @@ thresholds fixed, which ``utils/export.py`` exports.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
-from typing import Mapping, NamedTuple, Optional, Tuple
+import itertools
+from typing import Any, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -100,6 +103,8 @@ class Detector:
     # 0 = torchvision's adaptive ceil(roi_span) sampling (the reference's
     # roi_align default, predict.py:64-70); >0 = fixed SxS grid
     roi_samples: int = 0
+    # predict_sharded's replicas: (mesh, weights key, {device: model})
+    _replicas: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def create(cls, name: str, nc: int = 80, img_size: int = 640, device="cuda",
@@ -151,6 +156,67 @@ class Detector:
         return predict_step(self.model, x, conf_thres, iou_thres, max_det, pre_nms_k,
                             self.img_size, self.roi_samples)
 
+    def _replicas_for(self, mesh) -> dict:
+        """{device: model} for ``devices``: the model itself on its own
+        device, elsewhere a copy made once per mesh and weights (the JAX
+        package's replicated weights, engine.py:195-203). The cache holds
+        one entry, keyed by the mesh (identity) and every parameter's and
+        buffer's storage and version counter, so loading or calibrating
+        weights in place evicts it. A mesh of the model's own device alone
+        needs no copy and no key (the key costs ~2 ms of host time at
+        yolov8l)."""
+        own = self.device
+        if all(d == own for d in mesh.batch_devices):
+            return {own: self.model}
+        key = tuple((t.data_ptr(), t._version)
+                    for t in itertools.chain(self.model.parameters(), self.model.buffers()))
+        cached = self._replicas
+        if cached is not None and cached[0] is mesh and cached[1] == key:
+            return cached[2]
+        reps = {}
+        with torch.no_grad():
+            for d in mesh.batch_devices:
+                if d not in reps:
+                    reps[d] = self.model if d == own else copy.deepcopy(self.model).to(d).eval()
+        self._replicas = (mesh, key, reps)
+        return reps
+
+    @torch.no_grad()
+    def predict_sharded(self, images, mesh, conf_thres=0.25, iou_thres: float = 0.7,
+                        max_det: int = 300, pre_nms_k: int = 1024) -> PredictOutput:
+        """Data-parallel predict over a mesh (parallel/mesh.py) from one
+        process: the batch splits into the mesh's ("dcn", "data") shards,
+        equal and contiguous, in order; each shard runs the unchanged
+        predict step on its device's replica of the model (K4, K1, K2 launch
+        there), and the outputs are gathered onto the mesh's first device in
+        batch order. A batch that does not divide over the shards raises
+        ValueError, as the JAX package's device_put does; an ``sp`` or
+        ``model`` axis raises NotImplementedError (ROADMAP.md A12b)."""
+        from .parallel.mesh import batch_sharding, require_dp
+
+        require_dp(mesh, "predict_sharded")
+        sharding = batch_sharding(mesh)
+        x = torch.as_tensor(images)
+        rows = sharding.slices(x.shape[0])
+        reps = self._replicas_for(mesh)
+        outs = []
+        for sl, dev in zip(rows, sharding.devices):
+            with (torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()):
+                xs = normalise_images(x[sl].to(dev))
+                outs.append(predict_step(reps[dev], xs, conf_thres, iou_thres, max_det,
+                                         pre_nms_k, self.img_size, self.roi_samples))
+        return _gather(outs, sharding.devices[0])
+
     def neck_channels(self) -> Tuple[int, ...]:
         """Per-level neck channel counts (to slice roi_feats padding)."""
         return tuple(self.model.neck_channels)
+
+
+def _gather(parts, device):
+    """The shards' outputs (equal nested tuples of tensors) concatenated
+    along the batch on ``device``."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return first.to(device) if len(parts) == 1 else torch.cat([p.to(device) for p in parts])
+    fields = [_gather([p[i] for p in parts], device) for i in range(len(first))]
+    return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)

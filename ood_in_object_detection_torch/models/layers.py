@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.stem import silu
+from ..parallel.distributed import active_group, all_reduce_sum_autograd
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -66,10 +67,25 @@ def bn_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     ``bn.pending_stats`` until :func:`commit_batch_stats`: a layer
     recomputed under remat sets the same values again, and the buffers move
     only when the step is taken, as the JAX step returns its new
-    ``batch_stats``."""
+    ``batch_stats``.
+
+    Inside ``parallel.distributed.global_batch`` on more than one rank the
+    statistics are the global batch's, as in the JAX package's one logical
+    step: the f32 sums of x and x^2 and the count are summed over the ranks
+    (with their gradient), so the running statistics come out the same on
+    every rank. (``nn.SyncBatchNorm`` would store the unbiased variance.)"""
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    synced, group = active_group()
+    if synced:
+        count = xf.new_full((1,), xf.numel() // xf.shape[1])
+        sums = all_reduce_sum_autograd(
+            torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]), group)
+        c = xf.shape[1]
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+    else:
+        mean = xf.mean((0, 2, 3))
+        var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
     with torch.no_grad():
         bn.pending_stats = (BN_DECAY * bn.running_mean + (1 - BN_DECAY) * mean,
                             BN_DECAY * bn.running_var + (1 - BN_DECAY) * var)

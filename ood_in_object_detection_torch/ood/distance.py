@@ -14,6 +14,7 @@ in the JAX package; it stays plain PyTorch on every device
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple, Sequence
 
@@ -152,11 +153,13 @@ def min_group_distances(feats: torch.Tensor, centroids: torch.Tensor,
         int(metric != "cosine"), int(plan.wide), plan.gr, out.data_ptr(),
         _build.stream_handle(dev))
     min_group_distances.launches += 1
+    min_group_distances.launches_by_device[dev.index] += 1
     _build.check_launch("min_group_distance", code)
     return out
 
 
 min_group_distances.launches = 0
+min_group_distances.launches_by_device = collections.Counter()
 
 
 def distances_to_all_class_centroids_stride0(feats: torch.Tensor, bank: CentroidBank,

@@ -28,8 +28,12 @@ batch (``_cached_predict``).
 The SDR methods' embeddings (``ood/sdr.py``) run inside
 ``distance_features``, on the taps' device.
 
-Not ported yet, and each raises when asked for: the launch/consume overlap
-(it relies on JAX's asynchronous dispatch) and device meshes.
+With a ``mesh`` (parallel/mesh.py) every batch is predicted data parallel
+by ``Detector.predict_sharded``: a replica a device, the outputs gathered
+onto the mesh's first device, where the decisions (K3) and EUL run.
+
+Not ported yet: the launch/consume overlap (it relies on JAX's
+asynchronous dispatch).
 """
 
 from __future__ import annotations
@@ -79,11 +83,6 @@ def _np(x) -> np.ndarray:
     return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
-def _check_unported(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError("device meshes are not ported (ROADMAP.md A12, multi-GPU)")
-
-
 def _to(x, device):
     """Every tensor of a (nested) tuple on ``device``."""
     if isinstance(x, torch.Tensor):
@@ -92,14 +91,14 @@ def _to(x, device):
         tuple(_to(v, device) for v in x)
 
 
-def _cached_predict(step, detector: Detector, batches, conf_thr_test: float, eul: bool):
+def _cached_predict(step, device, batches, conf_thr_test: float, eul: bool):
     """``(batch_idx, images) -> PredictOutput``: ``step`` alone, or under
     CUSTOM_HYP.BENCHMARK_MODE a cache on disk (JAX ood/pipeline.py:392-427,
     reference ood_utils.py:450-482). An entry is keyed by the process nonce,
     the dataset's tag (``batches.tag``), the test confidence and EUL, and
     holds the per-box tensors on the host (and P3 with EUL, not the other
-    neck maps); a hit returns them as a PredictOutput on the detector's
-    device without running the forward."""
+    neck maps); a hit returns them as a PredictOutput on ``device`` (where
+    the step's outputs lie) without running the forward."""
     if not CUSTOM_HYP.BENCHMARK_MODE:
         return lambda batch_idx, images: step(images)
     cache_dir = C.TEMPORAL_STORAGE_PATH
@@ -110,7 +109,7 @@ def _cached_predict(step, detector: Detector, batches, conf_thr_test: float, eul
     def predict(batch_idx, images):
         path = cache_dir / f"{tag}_{batch_idx}.pkl"
         if path.exists():
-            return PredictOutput(*_to(pickle.loads(path.read_bytes()), detector.device))
+            return PredictOutput(*_to(pickle.loads(path.read_bytes()), device))
         out = step(images)
         slim = PredictOutput(out.det, out.logits, out.stride_level, out.anchor_idx,
                              out.roi_feats, out.exact_feats, (out.neck[0],) if eul else ())
@@ -120,12 +119,16 @@ def _cached_predict(step, detector: Detector, batches, conf_thr_test: float, eul
     return predict
 
 
-def _predict_step(detector: Detector, conf_thres: float, **kw):
-    """``images -> PredictOutput``. NMS IoU defaults to 0.7, the ultralytics
-    default the reference's pipeline inherits (cfg/default.yaml:57) — not
-    CUSTOM_HYP.IOU_THRESHOLD, which is the pred-to-GT matching threshold."""
+def _predict_step(detector: Detector, conf_thres: float, mesh=None, **kw):
+    """``images -> PredictOutput``; with a ``mesh``, data parallel through
+    ``Detector.predict_sharded`` (JAX pipeline.py:56-72). NMS IoU defaults
+    to 0.7, the ultralytics default the reference's pipeline inherits
+    (cfg/default.yaml:57) — not CUSTOM_HYP.IOU_THRESHOLD, which is the
+    pred-to-GT matching threshold."""
     kw.setdefault("iou_thres", 0.7)
-    return lambda images: detector.predict(images, conf_thres=conf_thres, **kw)
+    if mesh is None:
+        return lambda images: detector.predict(images, conf_thres=conf_thres, **kw)
+    return lambda images: detector.predict_sharded(images, mesh, conf_thres=conf_thres, **kw)
 
 
 def _leaf_methods(method) -> List[object]:
@@ -181,8 +184,8 @@ def extract_ind_activations(detector: Detector, batches, method,
                             mesh=None) -> Dict[int, object]:
     """-> {id(leaf): activations} for every leaf method in one pass. Logits
     leaves get [class] -> (N, nc) logits; distance leaves get
-    [class][stride] -> (N, C_stride) neck features."""
-    _check_unported(mesh)
+    [class][stride] -> (N, C_stride) neck features. With a ``mesh``, each
+    batch is predicted over it (``_predict_step``)."""
     iou_thr = CUSTOM_HYP.IOU_THRESHOLD if iou_thr_matching is None else iou_thr_matching
     nc = detector.nc
     neck_ch = detector.neck_channels()
@@ -191,7 +194,7 @@ def extract_ind_activations(detector: Detector, batches, method,
         id(m): [[] for _ in range(nc)] if isinstance(m, LogitsOODMethod)
         else [[[] for _ in range(3)] for _ in range(nc)] for m in leaves}
 
-    step = _predict_step(detector, conf_thr_train)
+    step = _predict_step(detector, conf_thr_train, mesh)
     img_w = detector.img_size
     for batch in batches:
         out = step(batch["images"])
@@ -329,11 +332,12 @@ def evaluate_method(detector: Detector, batches, method, known_classes: Sequence
     time; OoD boxes are relabelled as the unknown class. With
     ``enhanced_unk_localization`` each image also gets the EUL proposals of
     the first distance method, as unknowns at confidence UNK_PROPOSAL_CONF
-    (ood_utils.py:526-532)."""
-    _check_unported(mesh)
+    (ood_utils.py:526-532). With a ``mesh``, each batch is predicted over
+    it and decided on its first device."""
     logger = logger or log
     neck_ch = detector.neck_channels()
-    predict = _cached_predict(_predict_step(detector, conf_thr_test), detector, batches,
+    device = detector.device if mesh is None else mesh.batch_devices[0]  # the outputs'
+    predict = _cached_predict(_predict_step(detector, conf_thr_test, mesh), device, batches,
                               conf_thr_test, enhanced_unk_localization)
     all_preds, all_targets = [], []
     known_arr = np.asarray(list(known_classes))
@@ -342,7 +346,7 @@ def evaluate_method(detector: Detector, batches, method, known_classes: Sequence
         if not dms:
             raise ValueError("EUL needs a distance method (it ranks by centroid distance)")
         dm = dms[0]
-        rank_bank = _stride0_rank_bank(dm, neck_ch[0], detector.device)
+        rank_bank = _stride0_rank_bank(dm, neck_ch[0], device)
     for batch_idx, batch in enumerate(batches):
         out = predict(batch_idx, batch["images"])
         decisions = _np(_decisions_for_method(method, out, neck_ch))
@@ -526,12 +530,12 @@ def collect_fusion_member_indness(detector: Detector, batches, fusion,
     """Per-box INDness of every member of a fitted fusion method and the
     fused decision, over all valid boxes (the score-fusion figure of the
     reference's score_fusion_plot.ipynb) -> {'member_names', 'indness'
-    (M, N), 'decision' (N,), 'cls' (N,), 'conf' (N,)}."""
+    (M, N), 'decision' (N,), 'cls' (N,), 'conf' (N,)}. With a ``mesh``, each
+    batch is predicted over it."""
     if not isinstance(fusion, FusionOODMethod):
         raise ValueError("collect_fusion_member_indness needs a fusion method")
-    _check_unported(mesh)
     neck_ch = detector.neck_channels()
-    step = _predict_step(detector, conf_thr_test)
+    step = _predict_step(detector, conf_thr_test, mesh)
     per_member: List[List[np.ndarray]] = [[] for _ in fusion.methods]
     dec_all, cls_all, conf_all = [], [], []
     for batch in batches:

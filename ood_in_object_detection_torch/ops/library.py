@@ -75,6 +75,7 @@ def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) ->
         boxes.data_ptr(), valid.data_ptr(), float(iou_thres), b, k,
         mask.data_ptr(), keep.data_ptr(), _build.stream_handle(boxes.device))
     greedy_keep.launches += 1
+    greedy_keep.launches_by_device[boxes.device.index] += 1
     _build.check_launch("nms_keep", code)
     return keep
 
@@ -102,8 +103,10 @@ def roi_contract_cuda(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) ->
         out.data_ptr(), _build.stream_handle(fmap.device))
     if bf16:
         roi_contract.launches_bf16 += 1
+        roi_contract.launches_bf16_by_device[fmap.device.index] += 1
     else:
         roi_contract.launches += 1
+        roi_contract.launches_by_device[fmap.device.index] += 1
     _build.check_launch("roi_contract", code)
     return out
 

@@ -17,6 +17,7 @@ it.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Tuple
 
 import torch
@@ -63,8 +64,8 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
 
     Replaces ops/pallas/nms.py:greedy_keep_pallas. Calls the operator
     ``ood_torch::nms_keep`` (ops/library.py): CUDA tensors launch kernel K1
-    (csrc/nms_keep.cu) for every k and count the launch in ``launches``;
-    CPU tensors take :func:`greedy_keep_plain`."""
+    (csrc/nms_keep.cu) for every k and count the launch in ``launches``
+    (and per card index in ``launches_by_device``); CPU tensors take :func:`greedy_keep_plain`."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
         raise ValueError(f"greedy_keep: boxes {tuple(boxes.shape)} and valid "
                          f"{tuple(valid.shape)} must be (B, k, 4) and (B, k)")
@@ -72,6 +73,7 @@ def greedy_keep(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 greedy_keep.launches = 0
+greedy_keep.launches_by_device = collections.Counter()
 
 
 class Detections(NamedTuple):

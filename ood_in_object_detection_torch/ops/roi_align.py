@@ -19,6 +19,7 @@ level: :func:`roi_contract`, which calls the operator
 
 from __future__ import annotations
 
+import collections
 from typing import List, Sequence, Tuple
 
 import torch
@@ -135,7 +136,8 @@ def roi_contract(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torc
     roi_matmul_level_pallas's store / expand variants (bf16 maps). Calls the
     operator ``ood_torch::roi_contract`` (ops/library.py): CUDA tensors
     launch kernel K2 (csrc/roi_contract.cu) and count the launch in
-    ``launches`` (f32) or ``launches_bf16``; CPU tensors take
+    ``launches`` (f32) or ``launches_bf16`` (and per card index in
+    ``launches_by_device``, ``launches_bf16_by_device``); CPU tensors take
     :func:`roi_contract_plain`."""
     if fmap.dim() != 4 or wx.dim() != 3 or wy.dim() != 3:
         raise ValueError("roi_contract: fmap (B,H,W,C), wx (B,N2,W), wy (B,N2,H)")
@@ -148,6 +150,8 @@ def roi_contract(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torc
 
 roi_contract.launches = 0
 roi_contract.launches_bf16 = 0
+roi_contract.launches_by_device = collections.Counter()
+roi_contract.launches_bf16_by_device = collections.Counter()
 
 
 def box_axis_weights(fmap_hw: Tuple[int, int], boxes_xyxy: torch.Tensor, spatial_scale: float,

@@ -30,6 +30,7 @@ OIHW. BN parameters travel as dicts with the JAX package's keys
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, Tuple
 
 import torch
@@ -276,7 +277,8 @@ def fused_stem_launch(x: torch.Tensor, operands, c1: int, c2: int,
                       dtype: torch.dtype) -> torch.Tensor:
     """Launch kernel K4 on a CUDA image (B, 3, H, W) with BN already folded
     (:func:`k4_operands` in ``dtype``) -> (B, C2, H/4, W/4) in ``dtype``;
-    counts the launch in ``fused_stem.launches``."""
+    counts the launch in ``fused_stem.launches`` and, per card index, in
+    ``fused_stem.launches_by_device``."""
     from .kernels import _build
 
     check_k4_shapes(x.shape, c1, c2)
@@ -292,8 +294,10 @@ def fused_stem_launch(x: torch.Tensor, operands, c1: int, c2: int,
         b, h, w, c1, c2, int(dtype == torch.bfloat16), out.data_ptr(),
         _build.stream_handle(x.device))
     fused_stem.launches += 1
+    fused_stem.launches_by_device[x.device.index] += 1
     _build.check_launch("fused_stem", code)
     return out
 
 
 fused_stem.launches = 0
+fused_stem.launches_by_device = collections.Counter()

@@ -1,0 +1,283 @@
+"""Device meshes and batch sharding (port of
+ood_in_object_detection_tpu/parallel/mesh.py).
+
+A :class:`Mesh` is a ("dcn", "data", "sp", "model") grid of torch devices,
+as the JAX package's is of JAX devices. The batch splits over ("dcn",
+"data"): one host has one slice, so ``dcn`` folds into ``data`` and a batch
+of B rows becomes ``dcn * data`` equal contiguous shards, in order, one per
+mesh entry. Entries may repeat (the CPU, or one card named twice), so that
+one card or the CPU can hold the data-parallel path.
+
+- Inference is one process driving every entry
+  (``engine.Detector.predict_sharded``): a replica of the model on each
+  device, each shard through the unchanged predict step on its device, the
+  outputs gathered onto the mesh's first device.
+- Training is one process per entry under ``torch.distributed``
+  (``parallel/distributed.py``, ``train/trainer.py:make_sharded_train_step``):
+  BatchNorm's statistics, the loss normalizer and the gradient are those of
+  the global batch, as in the JAX package's one logical computation.
+
+The ``sp`` axis (image height split across devices, conv halos) and the
+``model`` axis (conv output channels split across devices) are ROADMAP.md
+A12b: a mesh with either larger than 1 builds, and every use of it raises
+NotImplementedError. :func:`param_spec`, a pure function, is ported.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+AXES = ("dcn", "data", "sp", "model")
+BATCH_AXES = ("dcn", "data")
+A12B = "ROADMAP.md A12b"
+
+
+def as_device(entry) -> torch.device:
+    """A mesh entry as a torch device: an int or a digit string is that
+    CUDA card, 'cpu' the CPU, anything else ``torch.device(entry)``. A card
+    that is not visible raises."""
+    if isinstance(entry, int) or (isinstance(entry, str) and entry.strip().isdigit()):
+        dev = torch.device("cuda", int(entry))
+    else:
+        dev = torch.device(entry.strip() if isinstance(entry, str) else entry)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"mesh entry {entry!r}: CUDA is not available (name 'cpu' "
+                               "entries to run on the CPU)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"mesh entry {entry!r}: card {dev.index} is missing "
+                               f"({torch.cuda.device_count()} visible)")
+    return dev
+
+
+def parse_devices(spec: str) -> List[torch.device]:
+    """A CLI's ``--device``: '0', 'cpu', or a comma list such as '0,1,2,3',
+    '0,0' or 'cpu,cpu' (one entry per mesh position)."""
+    return [as_device(s) for s in str(spec).split(",") if s.strip()]
+
+
+class Mesh:
+    """A ("dcn", "data", "sp", "model") grid of torch devices."""
+
+    def __init__(self, devices: np.ndarray):
+        if devices.ndim != len(AXES):
+            raise ValueError(f"a mesh is {len(AXES)}-D, got {devices.shape}")
+        self.devices = devices
+
+    @property
+    def shape(self) -> "collections.OrderedDict[str, int]":
+        return collections.OrderedDict(zip(AXES, self.devices.shape))
+
+    @property
+    def batch_devices(self) -> List[torch.device]:
+        """One device per batch shard, in batch order: the ("dcn", "data")
+        entries, dcn-major."""
+        require_dp(self, "batch sharding")
+        return list(self.devices.reshape(-1))
+
+    def __repr__(self) -> str:
+        return f"Mesh({dict(self.shape)}, {[str(d) for d in self.devices.reshape(-1)]})"
+
+
+def require_dp(mesh: Mesh, what: str) -> None:
+    """Raise NotImplementedError naming A12b unless the mesh's ``sp`` and
+    ``model`` axes are 1 (data parallelism only)."""
+    if mesh.shape["sp"] > 1 or mesh.shape["model"] > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh with sp={mesh.shape['sp']}, model={mesh.shape['model']}: "
+            f"spatial and tensor parallelism are not ported ({A12B})")
+
+
+def visible_cards() -> List[torch.device]:
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())] \
+        if torch.cuda.is_available() else []
+
+
+def make_mesh(data: Optional[int] = None, model: int = 1, sp: int = 1, dcn: int = 1,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A ("dcn", "data", "sp", "model") mesh over ``devices`` (entries as
+    :func:`as_device` takes them; the CPU or a card may repeat), by default
+    every visible card. ``data`` defaults to what the other axes leave."""
+    if devices is None:
+        devices = visible_cards()
+        if not devices:
+            raise RuntimeError("make_mesh: no CUDA card is visible; pass devices=['cpu', ...] "
+                               "to build a mesh on the CPU")
+    devs = [as_device(d) for d in devices]
+    n = len(devs)
+    if data is None:
+        data = n // (dcn * model * sp)
+    if dcn * data * sp * model != n or n == 0:
+        raise ValueError(f"mesh {dcn}x{data}x{sp}x{model} != {n} devices")
+    grid = np.empty(n, dtype=object)
+    grid[:] = devs
+    return Mesh(grid.reshape(dcn, data, sp, model))
+
+
+def num_slices(devices=None) -> int:
+    """Slices among the devices: 1, as one host has one."""
+    return 1
+
+
+def make_multislice_mesh(model: int = 1, sp: int = 1, devices=None) -> Mesh:
+    """:func:`make_mesh` with ``dcn`` 1: on one host the batch axes are
+    ``data`` alone."""
+    return make_mesh(model=model, sp=sp, devices=devices)
+
+
+def batch_spec() -> Tuple[str, ...]:
+    """The axes the leading (batch) dimension splits over."""
+    return BATCH_AXES
+
+
+class Sharding(NamedTuple):
+    """How a tensor lies on a mesh: its leading dimension split over
+    ``spec``'s axes (one contiguous shard per batch device), or, with an
+    empty spec, a whole copy on every distinct device."""
+    mesh: Mesh
+    spec: Tuple[str, ...]
+
+    @property
+    def devices(self) -> List[torch.device]:
+        if self.spec:
+            return self.mesh.batch_devices
+        return list(dict.fromkeys(self.mesh.devices.reshape(-1)))
+
+    def slices(self, n: int) -> List[slice]:
+        """The rows of each device's part of an n-row tensor; a batch that
+        does not divide over the shards raises ValueError."""
+        k = len(self.devices)
+        if not self.spec:
+            return [slice(0, n)] * k
+        if n % k:
+            raise ValueError(f"a batch of {n} does not divide over the mesh's {k} "
+                             f"({'x'.join(self.spec)}) shards")
+        s = n // k
+        return [slice(i * s, (i + 1) * s) for i in range(k)]
+
+
+def batch_sharding(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, batch_spec())
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def param_spec(path, leaf, model_axis_size: int) -> Tuple:
+    """Tensor-parallel spec of a parameter: a conv weight, (cout, cin, kh,
+    kw) in torch, splits cout over "model" when it divides and is at least
+    64 wide; everything else is replicated (the JAX package's rule on its
+    (kh, kw, cin, cout) kernels)."""
+    if model_axis_size <= 1:
+        return ()
+    if leaf.ndim == 4 and leaf.shape[0] % model_axis_size == 0 and leaf.shape[0] >= 64:
+        return ("model", None, None, None)
+    return ()
+
+
+def shard_params(params, mesh: Mesh) -> dict:
+    """{name: :func:`param_spec`} for a module's parameters or a
+    state_dict, under the mesh's ``model`` axis."""
+    items = params.named_parameters() if isinstance(params, torch.nn.Module) else params.items()
+    return {name: param_spec(name, t, mesh.shape["model"]) for name, t in items}
+
+
+def local_shards(mesh: Mesh) -> List[Tuple[int, torch.device]]:
+    """(shard index, device) of the batch shards this process feeds: every
+    shard in one process; under a process group (one rank per mesh entry,
+    parallel/distributed.py), the rank's own."""
+    devs = mesh.batch_devices
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+        if world != len(devs):
+            raise ValueError(f"a process group of {world} ranks on a mesh of {len(devs)} "
+                             "batch shards: run one rank per mesh entry")
+        return [(rank, devs[rank])]
+    return list(enumerate(devs))
+
+
+def _put(value, rows: slice, n: int, device):
+    if isinstance(value, torch.Tensor):
+        return value[rows].to(device)
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(value[rows])).to(device)
+    if isinstance(value, (list, tuple)) and len(value) == n:
+        return value[rows]
+    return value
+
+
+def device_put_batch(batch, mesh: Mesh) -> list:
+    """This process's shards of a host batch (a dict of arrays with a
+    leading batch dimension, or one array): one entry per shard of
+    :func:`local_shards`, its rows on its device. A batch that does not
+    divide over the mesh raises ValueError."""
+    require_dp(mesh, "device_put_batch")
+    n = len(batch[next(iter(batch))]) if isinstance(batch, dict) else len(batch)
+    rows = batch_sharding(mesh).slices(n)
+    out = []
+    for i, dev in local_shards(mesh):
+        if isinstance(batch, dict):
+            out.append({k: _put(v, rows[i], n, dev) for k, v in batch.items()})
+        else:
+            out.append(_put(batch, rows[i], n, dev))
+    return out
+
+
+TRAIN_KEYS = ("images", "gt_labels", "gt_bboxes", "gt_mask")
+
+
+def prefetch_to_device(batches: Iterable[dict], mesh: Mesh, size: int = 2):
+    """Training batches from a host iterator as tensors on this process's
+    device, in the trainer's layout (train/trainer.py:batch_to: images
+    (B, 3, H, W) f32): the process feeds one shard of ``mesh`` (a one-entry
+    mesh, or its rank's rows of each global batch under a process group).
+    On a card, up to ``size`` batches ahead are copied from pinned memory
+    on a side stream; each is handed over once its copy is done (the
+    current stream waits on its event)."""
+    from ..train.trainer import batch_to
+
+    require_dp(mesh, "prefetch_to_device")
+    shards = local_shards(mesh)
+    if len(shards) != 1:
+        raise ValueError("prefetch_to_device feeds one device a process; a training mesh "
+                         "runs one rank per entry (parallel/distributed.py:spawn)")
+    (index, device), = shards
+    sharding = batch_sharding(mesh)
+
+    def rows(b):
+        return {k: b[k][sharding.slices(len(b[k]))[index]] for k in TRAIN_KEYS}
+
+    if device.type != "cuda" or size <= 0:
+        for b in batches:
+            yield batch_to(rows(b), device)
+        return
+    side = torch.cuda.Stream(device)
+    pending = collections.deque()
+
+    def ready(item):
+        dev, done = item
+        cur = torch.cuda.current_stream(device)
+        cur.wait_event(done)
+        for t in dev.values():
+            t.record_stream(cur)
+        return dev
+
+    for b in batches:
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                for k, v in rows(b).items()}
+        with torch.cuda.stream(side):
+            dev = batch_to(host, device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        pending.append((dev, done))
+        if len(pending) > size:
+            yield ready(pending.popleft())
+    while pending:
+        yield ready(pending.popleft())

@@ -17,8 +17,12 @@ steps on the device:
   padding rows are computed and dropped.
 
 Every step runs at one batch size, so the kernels see one set of shapes.
-One process drives one card; the collector thread serializes the device
-work and runs it without autograd (grad mode is per thread in PyTorch).
+One process drives one card, or a mesh (parallel/mesh.py) through
+``Detector.predict_sharded`` (pass ``mesh=``: the batch splits over its
+devices, each runs its shard on its replica, the outputs and the decisions
+land on the mesh's first device). The collector thread serializes the
+device work and runs it without autograd (grad mode is per thread in
+PyTorch).
 """
 
 from __future__ import annotations
@@ -92,8 +96,10 @@ class MicroBatchServer:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError("serving over a device mesh is not ported "
-                                      "(ROADMAP.md A12, multi-GPU)")
+            from .parallel.mesh import batch_sharding, require_dp
+
+            require_dp(self.mesh, "MicroBatchServer")
+            batch_sharding(self.mesh).slices(self.batch_size)  # must divide
 
     @classmethod
     def from_bundle(cls, path, device=None, **kw) -> "MicroBatchServer":
@@ -184,6 +190,9 @@ class MicroBatchServer:
     # ---- server side ----
 
     def _predict(self, images):
+        if self.mesh is not None:
+            return self.detector.predict_sharded(images, self.mesh, conf_thres=self.conf_thres,
+                                                 pre_nms_k=self.pre_nms_k)
         return self.detector.predict(images, conf_thres=self.conf_thres,
                                      pre_nms_k=self.pre_nms_k)
 
@@ -222,8 +231,11 @@ class MicroBatchServer:
     def _warm_up(self) -> None:
         s = self.detector.img_size
         self._run(np.zeros((self.batch_size, s, s, 3), np.uint8))
-        if self.detector.device.type == "cuda":
-            torch.cuda.synchronize(self.detector.device)
+        devices = ([self.detector.device] if self.mesh is None
+                   else set(self.mesh.devices.reshape(-1)))
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _loop(self, ready: threading.Event, failed: list) -> None:
         with torch.no_grad():  # grad mode is per thread

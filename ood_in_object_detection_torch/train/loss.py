@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.head import REG_MAX, make_anchors
+from ..parallel.distributed import active_group, all_reduce_sum, world_size
 from .tal import assign, ciou  # noqa: F401 — ciou re-exported, as the JAX module does
 
 
@@ -58,8 +59,15 @@ def detection_loss(raw_levels: Sequence[torch.Tensor],  # 3 x (B, 4*REG_MAX+nc, 
                    nc: int, box_gain: float = 7.5, cls_gain: float = 0.5,
                    dfl_gain: float = 1.5, assign_topk: int = 10) -> LossBreakdown:
     """Total loss times the batch size, as the reference trainer's
-    (utils/loss.py v8DetectionLoss.__call__ returns loss.sum() * batch_size)."""
+    (utils/loss.py v8DetectionLoss.__call__ returns loss.sum() * batch_size).
+
+    Inside ``parallel.distributed.global_batch`` on more than one rank the
+    normalizer (the target scores' sum) and the batch size are the global
+    batch's, so each rank returns its share of the JAX package's one global
+    loss: the shares, and their gradients, sum over the ranks to the global
+    loss and its gradient."""
     B = raw_levels[0].shape[0]
+    synced, group = active_group()
     dev = raw_levels[0].device
     anchors, strides = make_anchors([(f.shape[2], f.shape[3]) for f in raw_levels], device=dev)
     x = flatten_levels(raw_levels)                                # (B, A, 64 + nc)
@@ -79,7 +87,12 @@ def detection_loss(raw_levels: Sequence[torch.Tensor],  # 3 x (B, 4*REG_MAX+nc, 
                      anchors * strides[:, None], gt_labels.long().clamp(0, nc - 1),
                      gt_bboxes_xyxy.float(), gt_mask, topk=assign_topk)
 
-    target_scores_sum = res.target_scores.sum().clamp(min=1.0)
+    target_scores_sum = res.target_scores.sum()
+    global_b = B
+    if synced:
+        all_reduce_sum([target_scores_sum], group)
+        global_b = B * world_size(group)
+    target_scores_sum = target_scores_sum.clamp(min=1.0)
     cls_loss = bce_with_logits(pred_logits, res.target_scores).sum() / target_scores_sum
 
     # box and DFL terms on the foreground anchors
@@ -94,7 +107,7 @@ def detection_loss(raw_levels: Sequence[torch.Tensor],  # 3 x (B, 4*REG_MAX+nc, 
     tdist = tdist.clamp(0, REG_MAX - 1 - 0.01)
     dfl_loss = torch.where(fg, df_loss(pred_dist, tdist) * weight, zero).sum() / target_scores_sum
 
-    total = (box_gain * box_loss + cls_gain * cls_loss + dfl_gain * dfl_loss) * B
+    total = (box_gain * box_loss + cls_gain * cls_loss + dfl_gain * dfl_loss) * global_b
     return LossBreakdown(total, box_loss, cls_loss, dfl_loss)
 
 

@@ -30,14 +30,17 @@ schedule is computed in float32, as the JAX package computes it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..models.layers import commit_batch_stats
+from ..parallel.distributed import all_reduce_sum, broadcast_, global_batch, world_size
 from .loss import LossBreakdown, detection_loss, v10_detection_loss
 
 f32 = np.float32
@@ -231,6 +234,17 @@ def train_step(model: nn.Module, cfg: TrainConfig, state: TrainState,
     :func:`batch_to`; gt_labels (B, M), gt_bboxes (B, M, 4) xyxy pixels,
     gt_mask (B, M)). ``state`` is updated in place and returned with the
     loss terms (detached)."""
+    return _step(model, cfg, state, batch, None)
+
+
+def _step(model: nn.Module, cfg: TrainConfig, state: TrainState, batch: dict, group,
+          timings: Optional[dict] = None) -> Tuple[TrainState, LossBreakdown]:
+    """:func:`train_step`; with ``group`` (a process group of more than one
+    rank, or the default group as ``dist.group.WORLD``) ``batch`` is this
+    rank's shard of the global batch: BatchNorm and the loss normalizer
+    take the global batch's sums, each rank's gradient (its share of the
+    global loss's) is summed over the ranks before the update, and the
+    loss terms returned are the global ones."""
     device = next(model.parameters()).device
     if batch["images"].shape[-1] == 3:
         batch = batch_to(batch, device)
@@ -238,8 +252,21 @@ def train_step(model: nn.Module, cfg: TrainConfig, state: TrainState,
     model.remat = cfg.remat
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
-    lb = loss_of(model, cfg, batch)
-    lb.total.backward()
+    with (global_batch(group) if group is not None else contextlib.nullcontext()):
+        lb = loss_of(model, cfg, batch)
+        lb.total.backward()  # inside: remat recomputes its layers here
+    lb = LossBreakdown(*(t.detach() for t in lb))
+    if group is not None:
+        grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
+        if timings is not None:
+            _sync(device)
+            t0 = time.perf_counter()
+        all_reduce_sum(grads, group)
+        if timings is not None:
+            _sync(device)
+            timings.setdefault("all_reduce_s", []).append(time.perf_counter() - t0)
+            timings["all_reduce_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+        lb = LossBreakdown(*all_reduce_sum([t.clone() for t in lb], group))
     sgd_step(opt, cfg, state.step)
     commit_batch_stats(model)
     state.step += 1
@@ -250,7 +277,83 @@ def train_step(model: nn.Module, cfg: TrainConfig, state: TrainState,
         ema = [state.ema[n] for n in names]
         torch._foreach_mul_(ema, float(d))
         torch._foreach_add_(ema, [params[n].detach() for n in names], alpha=float(f32(1) - d))
-    return state, LossBreakdown(*(t.detach() for t in lb))
+    return state, lb
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor of the state, in a fixed order: parameters and buffers,
+    the EMA, the momentum buffers (of the parameters that have one)."""
+    out = list(state.model.parameters()) + list(state.model.buffers())
+    out += [state.ema[n] for n in sorted(state.ema)]
+    for g in state.optimizer.param_groups:
+        for p in g["params"]:
+            buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
+            if buf is not None:
+                out.append(buf)
+    return out
+
+
+def shard_state(state: TrainState, mesh) -> TrainState:
+    """Place the state on this process's device of ``mesh``
+    (parallel/mesh.py; one rank per entry under a process group) and, with
+    more than one rank, make every rank's state rank 0's (parameters,
+    BatchNorm statistics, EMA, momentum buffers, step), so that the ranks
+    start, and stay, equal. Updated in place and returned."""
+    from ..parallel.mesh import local_shards, require_dp
+
+    require_dp(mesh, "shard_state")
+    shards = local_shards(mesh)
+    if len(shards) != 1:
+        raise ValueError("shard_state: a training process holds one device; run one rank per "
+                         "mesh entry (parallel/distributed.py:spawn)")
+    device = shards[0][1]
+    state.model.to(device)
+    for n in state.ema:
+        state.ema[n] = state.ema[n].to(device)
+    for st in state.optimizer.state.values():
+        for k, v in st.items():
+            if isinstance(v, torch.Tensor):
+                st[k] = v.to(device)
+    if world_size() > 1:
+        with torch.no_grad():
+            broadcast_(state_tensors(state), src=0)
+            step = torch.tensor([state.step], dtype=torch.int64, device=device)
+            broadcast_([step], src=0)
+            state.step = int(step.item())
+    return state
+
+
+def make_sharded_train_step(model: nn.Module, cfg: TrainConfig, mesh,
+                            timings: Optional[dict] = None):
+    """-> ``step(state, batch) -> (state, loss terms)``: the train step of
+    the global batch over ``mesh``'s ("dcn", "data") entries, one rank per
+    entry (parallel/distributed.py:spawn; a one-entry mesh needs no process
+    group), ``batch`` this rank's shard (parallel/mesh.py:device_put_batch
+    or prefetch_to_device). The math is the JAX package's one global step:
+    BatchNorm's statistics and the loss normalizer over the global batch,
+    the gradient summed over the ranks, so that the optimizer, the EMA and
+    the running statistics stay equal on every rank. With ``timings`` (a
+    dict) the gradient's all-reduce is timed between two synchronizations
+    (``all_reduce_s``, one entry a step, and ``all_reduce_bytes``)."""
+    from ..parallel.mesh import batch_sharding, local_shards, require_dp
+
+    require_dp(mesh, "make_sharded_train_step")
+    shards = local_shards(mesh)
+    if len(shards) != 1:
+        raise ValueError("make_sharded_train_step: a training process holds one device; run "
+                         "one rank per mesh entry (parallel/distributed.py:spawn)")
+    if len(batch_sharding(mesh).devices) == 1:  # one device: the single-device step
+        return lambda state, batch: train_step(model, cfg, state, batch)
+
+    def step(state: TrainState, batch: dict) -> Tuple[TrainState, LossBreakdown]:
+        return _step(model, cfg, state, batch, torch.distributed.group.WORLD, timings)
+
+    return step
 
 
 def load_ema(state: TrainState, ema: Dict[str, torch.Tensor]) -> None:

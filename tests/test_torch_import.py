@@ -27,7 +27,7 @@ LAZY_IMPORTS = {("cli/embedding_plot.py", "matplotlib"), ("cli/process_results.p
 
 @pytest.mark.parametrize("modules", [
     # the main path and the CLI
-    ["engine", "ood", "cli", "data", "eval", "constants", "core", "utils", "train"],
+    ["engine", "ood", "cli", "data", "eval", "constants", "core", "utils", "train", "parallel"],
     # the kernels' wrappers, the model and the probe scripts
     ["ops", "models", "scripts"],
 ])

@@ -398,7 +398,7 @@ def test_fusion_matches_jax(fx, strategy):
     assert tres == jres
 
 
-@pytest.mark.parametrize("flag", [["--data_parallel"], ["--cluster_method", "GMM"]])
+@pytest.mark.parametrize("flag", [["--compile_cache", "c"], ["--cluster_method", "GMM"]])
 def test_cli_unported_flags_raise(flag):
     from ood_in_object_detection_torch.cli import ood_eval
 

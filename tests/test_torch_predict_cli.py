@@ -159,17 +159,19 @@ def test_predict_load_ood_method_sidecar_config(tmp_path):
 
 def test_predict_refuses_sdr_and_unported_flags(tmp_path):
     """An SDR method's embedder is fitted in the process and no artifact
-    holds it: ValueError, as the JAX CLI raises; --data_parallel waits on
-    A12; --compile_cache has no counterpart."""
+    holds it: ValueError, as the JAX CLI raises; --compile_cache has no
+    counterpart; --data_parallel with a batch that does not divide over its
+    mesh raises (ValueError) before any image is read."""
     thr = tmp_path / "s_thresholds.pkl"
     thr.write_bytes(pickle.dumps([[[0.5] * 3] * 2]))
     args = tpredict.build_parser().parse_args(
         ["--source", "x", "--ood_method", "CosineIvis", "--ood_thresholds", str(thr)])
     with pytest.raises(ValueError, match="SDR embedding"):
         tpredict.load_ood_method(args)
-    for flag, item in ((["--data_parallel"], "A12"), (["--compile_cache", "c"], "compiles")):
-        with pytest.raises(NotImplementedError, match=item):
-            tpredict.main(["--source", "x", *flag])
+    with pytest.raises(NotImplementedError, match="compiles"):
+        tpredict.main(["--source", "x", "--compile_cache", "c"])
+    with pytest.raises(ValueError, match="divide"):
+        tpredict.main(["--source", "x", "--data_parallel", "--device", "cpu,cpu,cpu"])
 
 
 def test_predict_cli_torch_weights(fx, ckpts, tmp_path):  # noqa: F811

@@ -205,10 +205,12 @@ def test_serving_submit_after_stop_raises(det):
 
 
 def test_serving_unported_paths_raise(det):
-    """A device mesh waits on A12; a bundle never serves over a mesh (the
-    JAX ValueError, raised before the bundle is read)."""
-    with pytest.raises(NotImplementedError, match="A12"):
-        MicroBatchServer(det, mesh=object())
+    """A mesh's sp and model axes wait on A12b; a bundle never serves over
+    a mesh (the JAX ValueError, raised before the bundle is read)."""
+    from ood_in_object_detection_torch.parallel import make_mesh
+
+    with pytest.raises(NotImplementedError, match="A12b"):
+        MicroBatchServer(det, mesh=make_mesh(sp=2, devices=["cpu"] * 2))
     with pytest.raises(ValueError, match="mesh"):
         MicroBatchServer.from_bundle("bundle_dir", mesh=object())
 
