@@ -5,6 +5,7 @@
     python3 chip_smoke.py --reference-seeds 4   # the readings of REF_LIMITS (and the rest)
     python3 chip_smoke.py --only e2e_train      # the training phase alone
     python3 chip_smoke.py --only e2e_dp         # the data-parallel phase alone
+    python3 chip_smoke.py --only e2e_clusters   # MeanShift, GMM, BGMM through the CLI
 
 Phases, each printing one JSON line (a failure anywhere raises, and the
 script exits non-zero without printing a result):
@@ -50,6 +51,23 @@ script exits non-zero without printing a result):
    (K4's counter) once per OoD batch over all combinations. K3 is then
    held against its plain version at the fitted 'all' and 'KMeans' banks
    on the OoD batch's features (``cluster_banks`` in the kernels line).
+5b. e2e_clusters (the clusterers outside the sweep grid, on the f32 path):
+   e2e's detector and e2e_sweeps' scenes (per method the first
+   CLUSTERS_IND_BATCHES InD batches, printed: MeanShift on all 8, the
+   mixtures on 1, whose host EM took ~5 minutes on all 8 and ~2.5 on 2)
+   written as datasets; ``cli.ood_eval --cluster_method``
+   MeanShift, then GMM, then BGMM for Cosine_cl_stride, each after
+   ``np.random.seed(SEED)``, MeanShift with ``--visualize_clusters``, the
+   counters reset just before the three runs and read just after (K1-K4
+   must launch, K3 in each run). Per method the fit's host seconds, the
+   grid searches, the groups fitted and those with K > 1, the bank's
+   largest K and valid centroids, K3's launches, the OWOD row and the OoD
+   batch's share of boxes called OoD; every method must fit some group
+   with K > 1, so that K3 meets a bank of several centroids per group;
+   the score-curve PNGs must number the grid searches. K3
+   against its plain version at each of the three banks (``cluster_banks``
+   in the kernels line). ``python3 chip_smoke.py --only e2e_clusters``
+   runs it alone.
 6. e2e_sdr (the SDR methods on the f32 path): e2e's detector and
    e2e_sweeps' batches; one InD extraction, then for each of Umap,
    CosineIvis, L1Ivis and L2Ivis a fit (the per-stride triplet embedders on
@@ -78,7 +96,10 @@ script exits non-zero without printing a result):
    written as datasets (the caches must carry the checkpoint's stem);
    cli.predict --model_path on 16 PNGs with the fitted Cosine_cl_stride
    verdicts, its predictions.json equal to predict + decisions of the same
-   letterboxed batches; a MicroBatchServer (batch 8, 2 ms wait, the fitted
+   letterboxed batches, and the same CLI in a fresh process (which starts
+   with PyTorch's defaults, cuDNN TF32 on) bit-equal to it, while e2e's
+   detector with TF32 switched on in this process differs (the control of
+   core/precision.py's contract); a MicroBatchServer (batch 8, 2 ms wait, the fitted
    method attached) under 8 closed-loop client threads, 64 requests, then a
    lone request that pads a partial group: every result equal to a direct
    predict of its group, served images/s, p50 and p99 latency, launches per
@@ -147,8 +168,9 @@ script exits non-zero without printing a result):
    implementation called directly on the same inputs (operator_ms,
    direct_ms, dispatch_us; ops/library.py). K2 (f32) and K3 also
    carry ``eul_rank``: their numbers at the EUL rank's inputs, and K3
-   ``cluster_banks``: its numbers at the sweep's fitted banks. Launch
-   counts add up every main path's run (e2e, e2e_eul, e2e_sweeps, e2e_serve,
+   ``cluster_banks``: its numbers at the fitted banks of e2e_sweeps and
+   e2e_clusters. Launch counts add up every main path's run (e2e, e2e_eul,
+   e2e_sweeps, e2e_clusters, e2e_serve,
    e2e_bf16, e2e_bundle with its serving processes, e2e_dp); e2e_sdr's entry
    carries its own;
    e2e_families' entries carry their own model's counts, e2e_train's those
@@ -672,17 +694,18 @@ def group_counts(acts) -> list:
             for row in acts for a in row]
 
 
-def cluster_banks_entry(torch, det, methods, images) -> dict:
-    """K3 at the sweep's fitted 'all' and 'KMeans' banks, on the OoD batch's
-    features: the wrapper's time, its device time, the plain version's
-    time and error, the bound and cuBLAS's x @ C.T plus the masked minimum."""
+def cluster_banks_entry(torch, det, methods, images, names=("all", "KMeans")) -> dict:
+    """K3 at fitted banks (the sweep's 'all' and 'KMeans', e2e_clusters'
+    MeanShift, GMM and BGMM), on the OoD batch's features: the wrapper's
+    time, its device time, the plain version's time and error, the bound
+    and cuBLAS's x @ C.T plus the masked minimum."""
     from ood_in_object_detection_torch.ood import distance as D
     from ood_in_object_detection_torch.ood.pipeline import distance_features
     from ood_in_object_detection_torch.scripts import bench_k3 as BK3
 
     out = det.predict(images, conf_thres=CONF)
     banks = {}
-    for name in ("all", "KMeans"):
+    for name in names:
         m = methods[name]
         feats, groups, kmask = m.group_inputs(distance_features(m, out, det.neck_channels())[0])
         r = BK3.measure(feats, groups, kmask, m.metric, reps=20)
@@ -839,6 +862,148 @@ def phase_e2e_sweeps(torch, det):
         raise AssertionError("e2e_sweeps: " + "; ".join(failures))
     total = {k: cm_launches[k] + ul_launches[k] for k in cm_launches}
     return total, banks, ind, ood
+
+
+# the single-host clusterers outside the sweep grid (e2e_clusters), in this
+# order, each after np.random.seed(SEED) (GMM and BGMM draw their k-means
+# initialisations from NumPy's global RandomState); the first with
+# --visualize_clusters. Per method the first CLUSTERS_IND_BATCHES of the
+# sweeps' InD batches: the mixtures' host EM costs k D^3 a step in each
+# group (the Cholesky factors and their inverses), whatever the group's
+# size, so the fits' seconds follow the groups fitted: GMM + BGMM 295 s on
+# all 8 (19 groups), 151 s on 2 (14 groups), 109.5 s on 1 (8 groups, 5 of
+# them K > 1). MeanShift fits all 8 in 0.66 s; on 1 batch every group kept
+# K 1 (NVIDIA H100 80GB HBM3, 700.00 W, its host's 8 cores).
+CLUSTERS_RUN = ("MeanShift", "GMM", "BGMM")
+CLUSTERS_VIZ = "MeanShift"
+CLUSTERS_IND_BATCHES = {"MeanShift": 8, "GMM": 1, "BGMM": 1}
+
+
+def phase_e2e_clusters(torch, det, ind, ood):
+    """cli.ood_eval --cluster_method MeanShift, GMM, BGMM (Cosine_cl_stride)
+    on e2e_sweeps' scenes written as datasets (the detector handed to the
+    CLI), results and caches in a temporary directory; the counters reset
+    just before the three runs and read just after, each run's launches
+    apart. Per method: the fit's host seconds, the groups fitted and those
+    with more than one cluster, the bank's largest K and valid centroids,
+    K3's launches, the OWOD row and the share of the OoD batch's boxes
+    called OoD. The first run plots each grid search's score curve: one
+    PNG per search. Then K3 against its plain version at each bank.
+    -> (launches over the three runs, the K3 numbers of each bank)."""
+    import tempfile
+    from pathlib import Path
+
+    from ood_in_object_detection_torch import constants as C
+    from ood_in_object_detection_torch.cli import ood_eval as E
+    from ood_in_object_detection_torch.core.config import CUSTOM_HYP
+    from ood_in_object_detection_torch.ood import methods as M
+    from ood_in_object_detection_torch.ood.pipeline import _decisions_for_method
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_clusters_")
+    root = Path(tmp.name)
+    paths = (C.RESULTS_PATH, C.STORAGE_PATH)
+    C.RESULTS_PATH, C.STORAGE_PATH = root / "results", root / "storage"
+    ind_yamls = {n: write_dataset(root / f"ind{n}", ind[:n])
+                 for n in set(CLUSTERS_IND_BATCHES.values())}
+    ood_yaml = write_dataset(root / "ood", ood)
+    run_eval, generate, fit_labels = E.run_eval, M.DistanceOODMethod.generate_clusters, \
+        M.fit_cluster_labels
+    load_detector, visualize = E.load_detector, CUSTOM_HYP.clusters.VISUALIZE
+    evals, fits, searches = [], [], []
+
+    def recording_eval(args, detector, method, logger, mesh=None):
+        before = read_counters()
+        rows = run_eval(args, detector, method, logger, mesh)
+        torch.cuda.synchronize()
+        evals.append(dict(method=method, launches=_delta(before)))
+        return rows
+
+    def timed_generate(self, acts, *a, **kw):
+        t0 = time.perf_counter()
+        out = generate(self, acts, *a, **kw)
+        fits.append(time.perf_counter() - t0)
+        return out
+
+    def counted_search(*a, **kw):
+        searches.append(kw.get("tag"))
+        return fit_labels(*a, **kw)
+
+    failures, per_method, fitted = [], [], {}
+    E.run_eval, M.DistanceOODMethod.generate_clusters = recording_eval, timed_generate
+    M.fit_cluster_labels = counted_search
+    E.load_detector = lambda args, default_nc=20: det
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        for cm in CLUSTERS_RUN:
+            for record in (evals, fits, searches):
+                record.clear()
+            np.random.seed(SEED)
+            n_ind = CLUSTERS_IND_BATCHES[cm]
+            (row,) = E.main(["--ood_method", SWEEP_METHOD, "--cluster_method", cm,
+                             "--ind_dataset", str(ind_yamls[n_ind]),
+                             "--ood_datasets", str(ood_yaml),
+                             "--img_size", str(IMG), "--batch_size", str(BATCH),
+                             "--conf_thr_train", str(CONF), "--conf_thr_test", str(CONF),
+                             "--device", "0", "--name", "chip_smoke_clusters"]
+                            + (["--visualize_clusters"] if cm == CLUSTERS_VIZ else []))
+            CUSTOM_HYP.clusters.VISUALIZE = visualize
+            (ev,), (fit_s,) = evals, fits
+            m = ev["method"]
+            sizes = [len(c) for r in m.clusters for c in r if isinstance(c, np.ndarray)
+                     and c.ndim == 2]
+            bank = m.bank(DEVICE)
+            owod = {k: row[k] for k in row if k.endswith("(COOD)")}
+            with torch.no_grad():
+                calls = []
+                for b in ood:
+                    out = det.predict(b["images"], conf_thres=CONF)
+                    dec = _decisions_for_method(m, out, det.neck_channels())
+                    calls.append(dec[out.det.valid].cpu().numpy())
+            calls = np.concatenate(calls)
+            pngs = sorted((C.RESULTS_PATH / "cluster_viz").glob(f"*_{cm}_*_scores.png"))
+            per_method.append(dict(
+                cluster_method=cm, ind_batches=list(range(n_ind)), fit_host_s=fit_s,
+                grid_searches=len(searches),
+                groups_fitted=len(sizes), groups_with_k_gt_1=sum(k > 1 for k in sizes),
+                centroids=sum(sizes), largest_k=int(bank.count.max()),
+                valid_centroids=int(bank.count.sum()),
+                k3_launches=ev["launches"]["min_group_distances"], eval_launches=ev["launches"],
+                owod=owod, ood_boxes=len(calls), ood_share=float((calls == 0).mean()),
+                score_curve_pngs=len(pngs) if cm == CLUSTERS_VIZ else None))
+            fitted[cm] = m
+            if len(owod) != 4 or not all(np.isfinite(v) for v in owod.values()):
+                failures.append(f"{cm}: bad OWOD row {owod}")
+            if not ev["launches"]["min_group_distances"] or not sizes:
+                failures.append(f"{cm}: K3 did not launch on a fitted bank: {sizes}, "
+                                f"{ev['launches']}")
+            if not any(k > 1 for k in sizes):
+                failures.append(f"{cm}: every group kept one cluster ({sizes}), so K3 met "
+                                "no bank of several centroids per group")
+            if cm == CLUSTERS_VIZ and (len(pngs) != len(searches) or not pngs):
+                failures.append(f"{cm}: {len(pngs)} score-curve PNGs for {len(searches)} "
+                                "grid searches")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counters()
+        path = ("greedy_keep", "roi_contract", "min_group_distances", "fused_stem")
+        if not all(launches[k] for k in path):
+            failures.append(f"the three runs did not launch K1-K4: {launches}")
+    finally:
+        E.run_eval, M.DistanceOODMethod.generate_clusters = run_eval, generate
+        M.fit_cluster_labels, E.load_detector = fit_labels, load_detector
+        CUSTOM_HYP.clusters.VISUALIZE = visualize
+        C.RESULTS_PATH, C.STORAGE_PATH = paths
+        tmp.cleanup()
+    banks = cluster_banks_entry(torch, det, fitted, ood[0]["images"], names=CLUSTERS_RUN)
+    emit("e2e_clusters", model=MODEL, img_size=IMG, nc=NC, batch=BATCH, dtype="float32",
+         ood_method=SWEEP_METHOD, ood_batches=len(ood),
+         seed=SEED, seconds=seconds, launches=launches, methods=per_method,
+         k3_cluster_banks=banks, phase_seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("e2e_clusters: " + "; ".join(failures))
+    return launches, banks
 
 
 # the SDR methods (supervised dimensionality reduction, e2e_sdr): K3 runs on
@@ -1280,7 +1445,8 @@ def phase_e2e_serve(torch, det, ind, ood, env, root):
     """The serving path on e2e's detector (yolov8l, f32, its seeded weights):
     a checkpoint round trip, cli.ood_eval --model_path (MSP and
     Cosine_cl_stride), cli.predict --model_path with the fitted Cosine
-    verdicts on PREDICT_IMAGES PNGs, a MicroBatchServer with that method
+    verdicts on PREDICT_IMAGES PNGs (again in a fresh process, bit-equal,
+    against a TF32-on control that must differ), a MicroBatchServer with that method
     under SERVE_CLIENTS closed-loop clients and a lone request, and one
     served group against the CPU's plain versions within REF_LIMITS. The
     counters are reset just before and read just after each of the three
@@ -1289,6 +1455,7 @@ def phase_e2e_serve(torch, det, ind, ood, env, root):
     launches of the three runs."""
     import copy
     import threading
+    from pathlib import Path
 
     from PIL import Image
 
@@ -1369,7 +1536,7 @@ def phase_e2e_serve(torch, det, ind, ood, env, root):
         if json.loads((root / "pred" / "predictions.json").read_text()) != recs:
             failures.append("predict CLI: predictions.json differs from its records")
         method = P.load_ood_method(P.build_parser().parse_args(argv))
-        want = []
+        want, letterboxed, tf32_off = [], [], []
         files = P.collect_sources([str(src)])
         for start in range(0, len(files), BATCH):
             group = files[start:start + BATCH]
@@ -1379,6 +1546,8 @@ def phase_e2e_serve(torch, det, ind, ood, env, root):
                 dec = _np(_decisions_for_method(method, out, det.neck_channels()))
             boxes, conf, cls, valid = (_np(t) for t in (out.det.boxes, out.det.conf,
                                                         out.det.cls, out.det.valid))
+            letterboxed.append(batch)
+            tf32_off.append((boxes, conf))
             for i, p in enumerate(group):
                 n = int(valid[i].sum())
                 b = scale_boxes_back(boxes[i, :n], pads[i], origs[i])
@@ -1399,6 +1568,49 @@ def phase_e2e_serve(torch, det, ind, ood, env, root):
                        ood_share=sum(r["is_ood"] for r in recs) / max(len(recs), 1),
                        launches=predict_launches, box_abs_err_px=box_err,
                        score_abs_err=score_err, images_per_s_with_io=len(files) / predict_s)
+
+        # 3b. the precision contract (core/precision.py): the predict CLI in
+        # a fresh process, which starts with PyTorch's defaults (cuDNN TF32
+        # on), gives this process's records (TF32 off) bit for bit; the
+        # control: this detector with TF32 switched on here differs
+        fresh_dir = root / "pred_fresh"
+        fresh_argv = [str(fresh_dir) if a == str(root / "pred") else a for a in argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, torch; print('cudnn_tf32_at_start', "
+             "int(torch.backends.cudnn.allow_tf32), flush=True); from "
+             "ood_in_object_detection_torch.cli.predict import main; main(sys.argv[1:])",
+             *fresh_argv],
+            cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
+            timeout=600)
+        fresh_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"predict CLI in a fresh process failed (rc "
+                                 f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+        fresh_default_tf32 = "cudnn_tf32_at_start 1" in proc.stdout.splitlines()
+        fresh = json.loads((fresh_dir / "predictions.json").read_text())
+        here = json.loads((root / "pred" / "predictions.json").read_text())
+        fresh_equal = fresh == here and len(here) > 0
+        prior = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                on = [det.predict(b, conf_thres=CONF) for b in letterboxed]
+            tf32_on = [(_np(o.det.boxes), _np(o.det.conf)) for o in on]
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prior
+        control_equal = all(np.array_equal(a, c) for (b, conf), (bo, co) in
+                            zip(tf32_off, tf32_on) for a, c in ((b, bo), (conf, co)))
+        control_conf_err = max(float(np.abs(conf - co).max())
+                               for (_, conf), (_, co) in zip(tf32_off, tf32_on))
+        if not fresh_default_tf32 or not fresh_equal or control_equal:
+            failures.append(f"precision contract: the fresh process started with cuDNN TF32 "
+                            f"{fresh_default_tf32}, its records bit-equal {fresh_equal}, "
+                            f"the TF32-on control equal {control_equal}")
+        predict["fresh_process"] = dict(
+            seconds=fresh_s, started_with_cudnn_tf32=fresh_default_tf32,
+            records=len(fresh), bit_equal=fresh_equal, tf32_on_control_equal=control_equal,
+            tf32_on_control_conf_abs_err=control_conf_err)
 
         # 4. the micro-batch server under closed-loop clients, then a lone request
         serve_imgs = np.concatenate(make_batches(np.random.default_rng(SEED + 30),
@@ -1599,7 +1811,7 @@ def phase_e2e_bundle(torch, det, det16, root, env):
                 [sys.executable, "-m", "ood_in_object_detection_torch.scripts.serve_bundle",
                  "--bundle", str(out_dir), "--images", str(root / "requests.npy"),
                  "--out", str(out_dir / "served.pkl"), "--clients", str(SERVE_CLIENTS),
-                 "--max_wait_ms", str(SERVE_WAIT_MS), "--no_tf32"],
+                 "--max_wait_ms", str(SERVE_WAIT_MS)],
                 cwd=str(Path(__file__).resolve().parent), capture_output=True, text=True,
                 timeout=600)
             if proc.returncode != 0:
@@ -3488,12 +3700,12 @@ def main() -> int:
                     help="only take the card-vs-CPU reference readings of yolov8l and the "
                          "families on N seeds, sound and with a fault (reference_spread, "
                          "train_spread), and print no result")
-    ap.add_argument("--only", choices=["e2e_train", "e2e_dp"], default="",
+    ap.add_argument("--only", choices=["e2e_train", "e2e_dp", "e2e_clusters"], default="",
                     help="run this phase alone (after env and build, on a detector of its "
                          "own; e2e_dp with e2e_serve's checkpoint and datasets written "
-                         "first), print its kernel entries (e2e_train) and no result; with "
-                         "--reference-seeds, take only that phase's readings (train_spread, "
-                         "dp_spread)")
+                         "first, e2e_clusters on e2e_sweeps' scenes), print its kernel "
+                         "entries (e2e_train) and no result; with --reference-seeds, take "
+                         "only that phase's readings (train_spread, dp_spread)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one CUDA card",
@@ -3523,6 +3735,15 @@ def main() -> int:
         emit("done", seconds=time.perf_counter() - t_start)
         print(json.dumps({"kernels": entries, "card": env["nvidia_smi"]}), flush=True)
         return 0
+    if args.only == "e2e_clusters":
+        rng = np.random.default_rng(SEED)
+        det = family_detector(torch, MODEL, make_batches(rng, 3))
+        rng = np.random.default_rng(SEED + 20)  # e2e_sweeps' scenes
+        ind = label_batches(det, make_scenes(rng, SWEEP_BATCHES))
+        ood = label_batches(det, make_scenes(rng, 1), unknown_every=3)
+        phase_e2e_clusters(torch, det, ind, ood)
+        emit("done", seconds=time.perf_counter() - t_start)
+        return 0
     if args.only == "e2e_dp":
         from ood_in_object_detection_torch.core.checkpoint import save_checkpoint
 
@@ -3541,6 +3762,8 @@ def main() -> int:
     det, methods, ind, ood, launches, step_ms = phase_e2e(torch)
     launches_eul, eul_parts = phase_e2e_eul(torch, det, methods["Cosine_cl_stride"], ood)
     launches_sweeps, cluster_banks, sweep_ind, sweep_ood = phase_e2e_sweeps(torch, det)
+    launches_clusters, a7c_banks = phase_e2e_clusters(torch, det, sweep_ind, sweep_ood)
+    cluster_banks.update(a7c_banks)
     launches_sdr, sdr_entry = phase_e2e_sdr(torch, det, sweep_ind, sweep_ood)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as serve_root:
         launches_serve = phase_e2e_serve(torch, det, ind, ood, env, Path(serve_root))
@@ -3554,7 +3777,8 @@ def main() -> int:
     with torch.no_grad():
         entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
                                 _added(launches, launches16, launches_eul, launches_sweeps,
-                                       launches_serve, launches_bundle, launches_dp), eul_parts,
+                                       launches_clusters, launches_serve, launches_bundle,
+                                       launches_dp), eul_parts,
                                 cluster_banks)
     entries.append(sdr_entry)
     entries += phase_e2e_families(torch)

@@ -16,7 +16,8 @@ embedder's epochs and neighbours, one figure per configuration. Each figure
 is a known-only scatter and a known + unknown overlay (unknowns as
 squares), drawn with matplotlib. PCA is this module's own NumPy code
 (:class:`PCA`, scikit-learn 1.9's ``PCA(n_components)``): the card's
-machine has no scikit-learn. The SDR fit runs on ``--device``.
+machine has no scikit-learn. The SDR fit runs on ``--device``, with TF32
+off (core/precision.py).
 
     python -m ood_in_object_detection_torch.cli.embedding_plot \\
         --activations acts.pkl --number_of_known_classes 20 --out_dir plots
@@ -33,6 +34,8 @@ from typing import List, Tuple
 
 import numpy as np
 import scipy.linalg
+
+from ..core.precision import disable_tf32
 
 log = logging.getLogger("embedding_plot")
 
@@ -206,6 +209,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     rng = np.random.default_rng(0)
+    disable_tf32()
     device = "cpu" if args.device == "cpu" else f"cuda:{int(args.device)}"
 
     payload = pickle.loads(Path(args.activations).read_bytes())

@@ -43,7 +43,8 @@ from ..engine import Detector
 from ..eval.results_writer import (
     append_results, fill_dataset_results, finalize_row, method_info_row,
 )
-from ..ood.clustering import A7C, check_cluster_method
+from ..core.precision import disable_tf32
+from ..ood.clustering import check_cluster_method
 from ..ood.methods import DistanceOODMethod, FusionOODMethod
 from ..ood.pipeline import (_leaf_methods, assign_fitted_state, collect_fusion_member_indness,
                             evaluate_method, extract_ind_activations)
@@ -139,8 +140,6 @@ def check_ported(args) -> None:
             raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP.md: {item})")
     for c in args.cluster_method.split("-"):
         check_cluster_method(c)
-    if args.visualize_clusters:
-        raise NotImplementedError(f"--visualize_clusters is not ported yet ({A7C})")
     if args.benchmark:
         check_sweep(args.benchmark)
 
@@ -148,7 +147,9 @@ def check_ported(args) -> None:
 def torch_device(spec: str) -> torch.device:
     """'cpu' or a CUDA index (the first entry of a comma list); a CUDA
     device that is missing raises. A card becomes the current one, where
-    the kernels launch."""
+    the kernels launch. Switches TF32 off (core/precision.py), for the CPU
+    too: the CLIs' f32 path is f32."""
+    disable_tf32()
     spec = str(spec).split(",")[0].strip()
     if spec == "cpu":
         return torch.device("cpu")
@@ -358,6 +359,8 @@ def main(argv=None) -> List[Dict]:
     mesh = data_parallel_mesh(args)
     if args.remove_orphans:
         CUSTOM_HYP.clusters.REMOVE_ORPHANS = True
+    if args.visualize_clusters:
+        CUSTOM_HYP.clusters.VISUALIZE = True
     ind = load_dataset(args, args.ind_dataset, args.ind_split, args.owod_task_ind)
     detector = load_detector(args, default_nc=ind.number_of_classes)
     method = build_ood_method(

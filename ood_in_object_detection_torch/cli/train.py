@@ -129,8 +129,10 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     check_ported(args)
+    from ..core.precision import disable_tf32
     from ..parallel.mesh import parse_devices
 
+    disable_tf32()  # before spawn, which hands this process's flags to the ranks
     entries = parse_devices(args.device)
     if len(entries) == 1:
         return run(args)

@@ -5,9 +5,11 @@ cluster_utils.py:18-366) onto the port's own clusterers, which give
 scikit-learn's labels without scikit-learn (the card's machine has none):
 ``ood/kmeans.py`` (KMeans), ``ood/clusterers.py`` (DBSCAN, complete-linkage
 agglomerative clustering, Birch), ``ood/hdbscan.py`` (HDBSCAN),
-``ood/cluster_metrics.py`` (silhouette, Calinski-Harabasz) and
-``ood/dbcv.py`` (DBCV, a copy of the JAX package's). The clusterers run on
-the host in NumPy/SciPy, as the JAX package runs scikit-learn there.
+``ood/meanshift.py`` (MeanShift), ``ood/mixture.py`` (GaussianMixture,
+BayesianGaussianMixture), ``ood/cluster_metrics.py`` (silhouette,
+Calinski-Harabasz) and ``ood/dbcv.py`` (DBCV, a copy of the JAX package's).
+The clusterers run on the host in NumPy/SciPy, as the JAX package runs
+scikit-learn there.
 
 One hyperparameter per algorithm is searched, each candidate labelling is
 scored under the reference's validity constraints, and orphans (-1) follow
@@ -19,18 +21,24 @@ the configured policy:
     HDBSCAN                  min_cluster_size in range(MIN_SAMPLES, 50)
     AgglomerativeClustering  n_clusters in RANGE_OF_CLUSTERS (linkage=complete)
     Birch                    threshold in linspace(.1, 5, 100)
+    MeanShift                bandwidth=None twice (no search), cluster_all=not REMOVE_ORPHANS
+    GMM / BGMM               n_components in RANGE_OF_CLUSTERS, unseeded
     'all'                    every sample is its own cluster
     'one'                    handled by the caller (single centroid)
+
+GMM and BGMM take no seed, as in the JAX package: their k-means
+initialisations draw from NumPy's global RandomState, each grid point from
+the state the one before it left, and the refit of the best one after them,
+so the same ``np.random.seed`` gives the JAX package's labels.
 
 Each grid fits one matrix many times, so a search computes the matrix's
 pairwise distances (DBSCAN, HDBSCAN, the silhouette) and its linkage tree
 (agglomerative) once and hands them to every candidate; the labels and
 scores are those of a fit from scratch.
 
-MeanShift, GMM and BGMM, outside the paper's sweep grid (the JAX package
-fits GMM and BGMM with an unseeded RNG, so it holds no fixed answer for
-them), and the score-curve plot (CUSTOM_HYP.clusters.VISUALIZE, matplotlib)
-are not ported: they raise NotImplementedError naming ROADMAP.md A7c.
+With CUSTOM_HYP.clusters.VISUALIZE (``--visualize_clusters``) every grid
+search plots its scores against the searched parameter
+(``_plot_score_curve``).
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from .cluster_metrics import (SILHOUETTE_BLOCK_ELEMENTS, as_float_array,
 from .clusterers import DBSCAN, AgglomerativeClustering, Birch, complete_linkage_children
 from .hdbscan import HDBSCAN, data_distances
 from .kmeans import KMeans
+from .meanshift import MeanShift
+from .mixture import BayesianGaussianMixture, GaussianMixture
 
 log = logging.getLogger(__name__)
 
@@ -56,18 +66,13 @@ AVAILABLE_CLUSTERING_METHODS = (
     "HDBSCAN", "AgglomerativeClustering", "Birch", "MeanShift", "GMM", "BGMM",
 )
 AVAILABLE_CLUSTER_OPTIMIZATION_METRICS = ("silhouette", "calinski_harabasz")
-# in AVAILABLE_CLUSTERING_METHODS (the JAX package's list) but not ported
-UNPORTED_CLUSTERING_METHODS = ("MeanShift", "GMM", "BGMM")
-A7C = "ROADMAP.md A7c: MeanShift, GMM, BGMM and the cluster score-curve plot"
 
 _SKLEARN_METRIC = {"l1": "l1", "l2": "l2", "cosine": "cosine",
                    "manhattan": "manhattan", "euclidean": "euclidean"}
 
 
 def check_cluster_method(method: str) -> None:
-    """Raise for a cluster method the port refuses (and for unknown ones)."""
-    if method in UNPORTED_CLUSTERING_METHODS:
-        raise NotImplementedError(f"cluster method {method!r} is not ported ({A7C})")
+    """Raise ValueError for an unknown cluster method."""
     if method not in AVAILABLE_CLUSTERING_METHODS:
         raise ValueError(f"invalid clustering method: {method}")
 
@@ -146,6 +151,15 @@ def _candidate_grid(method: str, metric: str, hyp: ClustersParams,
     if method == "Birch":
         return (lambda p: Birch(branching_factor=50, **p),
                 [{"threshold": float(t)} for t in np.linspace(0.1, 5, 100)], False)
+    if method == "MeanShift":
+        return (lambda p: MeanShift(cluster_all=not hyp.REMOVE_ORPHANS, **p),
+                [{"bandwidth": None}, {"bandwidth": None}], False)
+    if method == "GMM":
+        return (lambda p: GaussianMixture(**p),
+                [{"n_components": k} for k in hyp.RANGE_OF_CLUSTERS], False)
+    if method == "BGMM":
+        return (lambda p: BayesianGaussianMixture(**p),
+                [{"n_components": k} for k in hyp.RANGE_OF_CLUSTERS], False)
     raise ValueError(f"invalid clustering method: {method}")
 
 
@@ -200,6 +214,51 @@ def _score_labels(
     raise ValueError(f"invalid perf metric {perf_metric}")
 
 
+def _plot_score_curve(scores, grid, method: str, perf_metric: str, tag: str):
+    """Grid-search score curve vs the searched parameter, saved as
+    RESULTS_PATH/cluster_viz/{tag}_{method}_{perf_metric}_scores.png
+    (reference plot_scores, cluster_utils.py:342-352; the JAX package's
+    _plot_score_curve, a matplotlib figure of 600 x 400 pixels). Drawn with
+    Pillow, which draws the port's other PNGs (the card's machine has no
+    matplotlib), on a canvas of that size: a framed plot area, the curve
+    with a dot at each grid point, the extremes of each axis, the axis
+    names and the title."""
+    from PIL import Image, ImageDraw
+
+    from .. import constants as C
+
+    xs = [next(iter(p.values())) for p in grid]
+    param_name = next(iter(grid[0].keys())) if grid else "param"
+    if any(x is None for x in xs):
+        xs, param_name = list(range(len(grid))), "config"
+    out = C.RESULTS_PATH / "cluster_viz"
+    out.mkdir(parents=True, exist_ok=True)
+
+    size = (600, 400)
+    img = Image.new("RGB", size, "white")
+    draw = ImageDraw.Draw(img)
+    left, top, right, bottom = 70, 40, size[0] - 20, size[1] - 50
+    draw.rectangle((left, top, right, bottom), outline="black")
+    xs, ys = np.asarray(xs, np.float64), np.asarray(scores, np.float64)
+    x0, x1 = float(xs.min()), float(xs.max())
+    y0, y1 = float(ys.min()), float(ys.max())
+    sx = (right - left) / ((x1 - x0) or 1.0)
+    sy = (bottom - top) / ((y1 - y0) or 1.0)
+    pts = [(left + (x - x0) * sx, bottom - (y - y0) * sy) for x, y in zip(xs, ys)]
+    if len(pts) > 1:
+        draw.line(pts, fill=(31, 119, 180), width=1)
+    for px, py in pts:
+        draw.ellipse((px - 2, py - 2, px + 2, py + 2), fill=(31, 119, 180))
+    draw.text((left, bottom + 4), f"{x0:g}", fill="black")
+    draw.text((right - 30, bottom + 4), f"{x1:g}", fill="black")
+    draw.text((4, bottom - 10), f"{y0:.4g}", fill="black")
+    draw.text((4, top), f"{y1:.4g}", fill="black")
+    draw.text(((left + right) // 2 - 20, size[1] - 20), param_name, fill="black")
+    draw.text((4, (top + bottom) // 2), perf_metric, fill="black")
+    draw.text((left, 12), f"{tag} {method}", fill="black")
+    img.save(out / f"{tag}_{method}_{perf_metric}_scores.png")
+
+
 def fit_cluster_labels(
     feats: np.ndarray,
     method: str,
@@ -220,9 +279,6 @@ def fit_cluster_labels(
     if method.startswith("KMeans_"):
         k = min(int(method.split("_")[-1]), len(feats))
         return KMeans(n_clusters=k, random_state=10).fit_predict(feats)
-    if hyp.VISUALIZE:  # the JAX package plots each grid search's scores
-        raise NotImplementedError(f"the cluster score-curve plot is not ported ({A7C})")
-
     try:
         shared = _Shared(as_float_array(feats))
     except ValueError:
@@ -230,6 +286,7 @@ def fit_cluster_labels(
     factory, grid, density_based = _candidate_grid(method, metric, hyp, shared)
     default_score = -1.0 if perf_metric == "silhouette" else 0.0
     best_score, best_params = default_score, None
+    scores = []
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         for params in grid:
@@ -241,8 +298,12 @@ def fit_cluster_labels(
                 log.debug("cluster config %s failed: %s", params, e)
                 s = None
             s = default_score if s is None else s
+            scores.append(s)
             if s > best_score:
                 best_score, best_params = s, params
+
+    if hyp.VISUALIZE:
+        _plot_score_curve(scores, grid, method, perf_metric, tag or "clusters")
 
     if best_params is None and default_score == -1.0:
         # all configurations degenerate -> single cluster; under

@@ -12,7 +12,7 @@ score < thr[cls], with 0 for an unfit class (ood_utils.py:1195-1208, 612);
 distance methods call it InD when dist < thr[cls, stride] and OoD when there
 is no cluster or no threshold (ood_utils.py:2147-2180). Clusters are one
 centroid per group (``one``) or the centroids of a host-side cluster search
-(``ood/clustering.py``); MeanShift, GMM and BGMM raise (ROADMAP.md A7c).
+(``ood/clustering.py``).
 The SDR methods (Umap, CosineIvis, L1Ivis, L2Ivis) carry a fitted
 per-stride embedding in ``sdr_state``, applied by ``transform_fn``
 (``ood/sdr.py``).
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..core.config import CUSTOM_HYP
-from .clustering import UNPORTED_CLUSTERING_METHODS, check_cluster_method, fit_cluster_labels
+from .clustering import fit_cluster_labels
 from .distance import (
     CentroidBank,
     NO_CLUSTER_DISTANCE,
@@ -165,10 +165,6 @@ class DistanceOODMethod:
     # (sdr_state, acts (N, ...), cls, stride) -> (N, D) embedding (ood/sdr.py)
     sdr_state: Optional[dict] = dataclasses.field(default=None, repr=False)
     transform_fn: Optional[Callable] = dataclasses.field(default=None, repr=False)
-
-    def __post_init__(self):
-        if self.cluster_method in UNPORTED_CLUSTERING_METHODS:
-            check_cluster_method(self.cluster_method)
 
     def __getstate__(self):
         # the centroid banks hold tensors on the devices that decided; a

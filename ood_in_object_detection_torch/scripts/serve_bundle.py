@@ -3,16 +3,15 @@ process that builds no model and reads no checkpoint.
 
     python -m ood_in_object_detection_torch.scripts.serve_bundle --bundle DIR \\
         --images requests.npy --out served.pkl [--clients 8] [--max_wait_ms 2] \\
-        [--no_tf32] [--device cpu]
+        [--device cpu]
 
 ``--images``: an (N, S, S, 3) uint8 array, one request an image.
 ``MicroBatchServer.from_bundle`` loads DIR (the card unless ``--device cpu``)
 and warms up on the bundle's step; ``--clients`` threads then submit the N
 requests, each client its share one at a time (client c takes requests c,
 c + clients, ...). The kernels' launch counters are set to 0 just before the
-clients start and read just after they finish. PyTorch lets cuDNN run f32
-convolutions in TF32 by default; ``--no_tf32`` switches that off, and TF32
-matmuls, as the f32 path's reference runs do.
+clients start and read just after they finish. TF32 is off for cuDNN
+convolutions and matmuls, as in the CLIs (core/precision.py).
 
 Prints one JSON line: the load and warm-up seconds, the served images/s,
 the p50 / p99 / mean latency, the number of groups, the launches of K4, K1,
@@ -35,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from ..core.precision import disable_tf32
 from ..ood import distance as D
 from ..ops import nms as N
 from ..ops import roi_align as R
@@ -123,13 +123,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", required=True, help="pickle of the results and groups")
     ap.add_argument("--clients", type=int, default=8)
     ap.add_argument("--max_wait_ms", type=float, default=2.0)
-    ap.add_argument("--no_tf32", action="store_true",
-                    help="f32 convolutions and matmuls without TF32 on the card")
     ap.add_argument("--device", default=None, help="'cpu', or the card by default")
     args = ap.parse_args(argv)
-    if args.no_tf32:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    disable_tf32()
     images = np.load(args.images)
     report, results, groups = serve(args.bundle, images, args.clients, args.max_wait_ms,
                                     args.device)

@@ -290,29 +290,132 @@ def test_failures_raise_value_error(bad):
         bad()
 
 
-@pytest.mark.parametrize("method", ["MeanShift", "GMM", "BGMM"])
+A7C_METHODS = ["MeanShift", "GMM", "BGMM"]
+
+
+def _seeded(fit, *args, seed=0, **kw):
+    """fit(*args) after np.random.seed(seed) -> (result or exception type,
+    the global RandomState's key afterwards)."""
+    np.random.seed(seed)
+    try:
+        out = np.asarray(fit(*args, **kw))
+    except Exception as e:  # the same failure on both sides
+        out = type(e).__name__
+    return out, np.random.get_state()[1].copy()
+
+
+@pytest.mark.parametrize("method", A7C_METHODS)
 def test_unported_methods_raise(method):
-    with pytest.raises(NotImplementedError, match="A7c"):
-        tcl.fit_cluster_labels(blobs(0, 20, 4, 2, 0.3), method, "l2")
-    with pytest.raises(NotImplementedError, match="A7c"):
-        tmethods.DistanceOODMethod.from_name("L2_cl_stride", cluster_method=method)
-
-
-def test_score_curve_plot_raises():
+    """MeanShift, GMM and BGMM, which no call refuses: fit_cluster_labels
+    gives the JAX package's labels after the same global seed, and
+    DistanceOODMethod.from_name builds the method, as in JAX."""
     x = blobs(0, 20, 4, 2, 0.3)
-    with pytest.raises(NotImplementedError, match="A7c"):
-        tcl.fit_cluster_labels(x, "KMeans", "l2", hyp=TParams(VISUALIZE=True))
-    # the JAX package plots only a grid search's scores
-    np.testing.assert_array_equal(tcl.fit_cluster_labels(x, "all", "l2",
-                                                         hyp=TParams(VISUALIZE=True)),
-                                  np.arange(20))
+    got, got_state = _seeded(tcl.fit_cluster_labels, x, method, "l2")
+    want, want_state = _seeded(jcl.fit_cluster_labels, x, method, "l2")
+    assert_same(got, want)
+    np.testing.assert_array_equal(got_state, want_state)
+    m = tmethods.DistanceOODMethod.from_name("L2_cl_stride", cluster_method=method)
+    assert m.cluster_method == jmethods.DistanceOODMethod.from_name(
+        "L2_cl_stride", cluster_method=method).cluster_method == method
 
 
-@pytest.mark.parametrize("method", ["KMeans", "HDBSCAN"])
+# (seed, N, D, blobs, spread, outliers) per method: two seeds' draws for the
+# unseeded mixtures, blobs with outliers for MeanShift's orphans
+A7C_DATA = {"MeanShift": [(20, 80, 6, 3, 0.3, 3), (21, 90, 24, 3, 0.3, 0)],
+            "GMM": [(22, 60, 4, 3, 0.3, 0), (23, 80, 12, 4, 0.5, 4)],
+            "BGMM": [(24, 60, 4, 3, 0.3, 0), (25, 80, 12, 4, 0.5, 4)]}
+
+
+@pytest.mark.parametrize("remove_orphans", [False, True])
+@pytest.mark.parametrize("perf", ["silhouette", "calinski_harabasz"])
+@pytest.mark.parametrize("method", A7C_METHODS)
+def test_a7c_fit_cluster_labels_matches_jax(method, perf, remove_orphans):
+    """The three methods' searches (MeanShift's two padded configs, the
+    mixtures' k 2..14 and the refit of the best) against the JAX package's
+    after the same np.random.seed: the same labels and the same global
+    RandomState afterwards, so the same draws in the same order."""
+    found = []
+    for seed, n, d, k, spread, outliers in A7C_DATA[method]:
+        x = blobs(seed, n, d, k, spread, outliers=outliers)
+        hyp = dict(REMOVE_ORPHANS=remove_orphans)
+        got, got_state = _seeded(tcl.fit_cluster_labels, x, method, "l2", perf,
+                                 hyp=TParams(**hyp), seed=seed)
+        want, want_state = _seeded(jcl.fit_cluster_labels, x, method, "l2", perf,
+                                   hyp=JParams(**hyp), seed=seed)
+        assert_same(got, want, f"seed {seed}")
+        np.testing.assert_array_equal(got_state, want_state, err_msg=f"seed {seed}")
+        found.append(len(set(want.tolist())))
+    assert max(found) > 1, "one cluster everywhere: the case checks little"
+
+
+def test_score_curve_plot_raises(tmp_path, monkeypatch):
+    """VISUALIZE plots a grid search's scores at the JAX package's file
+    name, RESULTS_PATH/cluster_viz/{tag}_{method}_{perf_metric}_scores.png;
+    'all', which searches nothing, plots nothing, as in JAX."""
+    from ood_in_object_detection_torch import constants as TC
+
+    monkeypatch.setattr(TC, "RESULTS_PATH", tmp_path / "torch")
+    monkeypatch.setattr(JC, "RESULTS_PATH", tmp_path / "jax")
+    x = blobs(0, 20, 4, 2, 0.3)
+    for fit, params in ((tcl.fit_cluster_labels, TParams), (jcl.fit_cluster_labels, JParams)):
+        fit(x, "KMeans", "l2", hyp=params(VISUALIZE=True), tag="L2_cl_stride_cls0_stride1")
+        np.testing.assert_array_equal(fit(x, "all", "l2", hyp=params(VISUALIZE=True)),
+                                      np.arange(20))
+    names = [sorted(p.relative_to(tmp_path / k).as_posix()
+                    for p in (tmp_path / k).rglob("*.png")) for k in ("torch", "jax")]
+    assert names[0] == names[1] == [
+        "cluster_viz/L2_cl_stride_cls0_stride1_KMeans_silhouette_scores.png"]
+
+
+@pytest.mark.parametrize("method", A7C_METHODS + ["KMeans"])
+def test_score_curve_inputs_match_jax(method, monkeypatch):
+    """The plot's inputs, (scores, grid, method, perf_metric, tag), equal
+    the JAX package's for each method and score (MeanShift's x axis is the
+    config index: its two grid points carry bandwidth None)."""
+    calls = {"torch": [], "jax": []}
+    for key, mod in (("torch", tcl), ("jax", jcl)):
+        monkeypatch.setattr(mod, "_plot_score_curve",
+                            lambda *a, key=key: calls[key].append(a))
+    x = blobs(26, 60, 6, 3, 0.4, outliers=3)
+    for perf in ("silhouette", "calinski_harabasz"):
+        for fit, params in ((tcl.fit_cluster_labels, TParams), (jcl.fit_cluster_labels, JParams)):
+            _seeded(fit, x, method, "cosine", perf, hyp=params(VISUALIZE=True), tag="t")
+    assert len(calls["torch"]) == len(calls["jax"]) == 2
+    for (ts, tg, *trest), (js, jg, *jrest) in zip(calls["torch"], calls["jax"]):
+        np.testing.assert_allclose(ts, js, rtol=1e-6)
+        assert tg == jg and trest == jrest
+    assert len(set(np.round(calls["jax"][0][0], 6))) > 1 or method == "MeanShift"
+
+
+def test_score_curve_png(tmp_path, monkeypatch):
+    """The curve is drawn with Pillow, without matplotlib (the card's
+    machine has none), at the JAX file name and the JAX figure's 600 x 400
+    pixels, and the canvas is not empty."""
+    import sys
+
+    from PIL import Image
+
+    from ood_in_object_detection_torch import constants as TC
+
+    monkeypatch.setattr(TC, "RESULTS_PATH", tmp_path)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import raises ImportError
+    grid = [{"n_components": k} for k in range(2, 15)]
+    scores = list(np.linspace(-1, 0.5, 13))
+    tcl._plot_score_curve(scores, grid, "GMM", "silhouette", "t")
+    with Image.open(tmp_path / "cluster_viz" / "t_GMM_silhouette_scores.png") as img:
+        assert img.size == (600, 400)
+        px = np.asarray(img.convert("RGB"))
+    assert (px != 255).any(axis=-1).sum() > 500, "an empty canvas"
+
+
+@pytest.mark.parametrize("method", ["KMeans", "HDBSCAN"] + A7C_METHODS)
 def test_candidate_grid_matches_jax(method):
-    _, jgrid, jdens = jcl._candidate_grid(method, "l2", JParams())
-    _, tgrid, tdens = tcl._candidate_grid(method, "l2", TParams())
-    assert tgrid == jgrid and tdens == jdens
+    for remove_orphans in (False, True):
+        jf, jgrid, jdens = jcl._candidate_grid(method, "l2", JParams(REMOVE_ORPHANS=remove_orphans))
+        tf, tgrid, tdens = tcl._candidate_grid(method, "l2", TParams(REMOVE_ORPHANS=remove_orphans))
+        assert tgrid == jgrid and tdens == jdens
+        if method == "MeanShift":  # orphans stay -1 under REMOVE_ORPHANS
+            assert tf(tgrid[0]).cluster_all == jf(jgrid[0]).cluster_all == (not remove_orphans)
     assert tcl.make_each_orphan_own_cluster(np.array([0, -1, 1, -1])).tolist() == \
         jcl.make_each_orphan_own_cluster(np.array([0, -1, 1, -1])).tolist()
 

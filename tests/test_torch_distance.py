@@ -124,12 +124,32 @@ def test_distance_method_matches_jax(name):
 
 
 def test_unported_cluster_methods_raise():
-    # the sweep grid's cluster methods are ported; GMM is not (A7c)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
-        tmethods.DistanceOODMethod.from_name("L2_cl_stride", cluster_method="GMM")
-    # an SDR name builds (its embedding is ported) and refuses BGMM (A7c) alike
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7c"):
-        tmethods.DistanceOODMethod.from_name("Umap", cluster_method="BGMM")
+    """GMM and BGMM build, as every cluster method of the JAX package does:
+    an L2_cl_stride with GMM fits the JAX package's centroids after the
+    same np.random.seed, and an SDR name takes BGMM alike."""
+    from ood_in_object_detection_tpu.core.config import CUSTOM_HYP as JHYP
+    from ood_in_object_detection_torch.core.config import CUSTOM_HYP as THYP
+
+    rng = np.random.default_rng(5)
+    acts = [[(rng.normal(size=(n, 8)) + rng.normal(size=(1, 8))).astype(np.float32)
+             if n else np.empty(0) for n in row] for row in ((40, 0, 12), (30, 25, 0))]
+    got, want = [], []
+    for mod, out in ((tmethods, got), (jmethods, want)):
+        m = mod.DistanceOODMethod.from_name("L2_cl_stride", cluster_method="GMM")
+        np.random.seed(0)
+        out.append(m.generate_clusters(acts))
+    assert JHYP.clusters.MIN_SAMPLES == THYP.clusters.MIN_SAMPLES
+    fitted = 0
+    for trow, jrow in zip(got[0], want[0]):
+        for t, j in zip(trow, jrow):
+            assert np.shape(t) == np.shape(j)
+            if np.ndim(j) == 2:
+                np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-7)
+                fitted += 1
+    assert fitted == 4
+    t = tmethods.DistanceOODMethod.from_name("Umap", cluster_method="BGMM")
+    j = jmethods.DistanceOODMethod.from_name("Umap", cluster_method="BGMM")
+    assert (t.name, t.metric, t.cluster_method) == (j.name, j.metric, j.cluster_method)
 
 
 # K3's schedule (csrc/min_group_distance.cu), emulated in plain torch: row

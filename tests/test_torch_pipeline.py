@@ -399,9 +399,18 @@ def test_fusion_matches_jax(fx, strategy):
 
 
 @pytest.mark.parametrize("flag", [["--compile_cache", "c"], ["--cluster_method", "GMM"]])
-def test_cli_unported_flags_raise(flag):
+def test_cli_unported_flags_raise(flag, tmp_path, monkeypatch):
+    """--compile_cache is not ported and raises naming ROADMAP; --cluster_method
+    GMM passes the CLI's checks and reaches the datasets (missing here)."""
     from ood_in_object_detection_torch.cli import ood_eval
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ood_eval.main(["--ood_method", "MSP", "--ind_dataset", "x.yaml",
-                       "--ood_datasets", "y.yaml", *flag])
+    monkeypatch.chdir(tmp_path)
+    argv = ["--ood_method", "MSP", "--ind_dataset", "x.yaml", "--ood_datasets", "y.yaml",
+            "--device", "cpu", *flag]
+    if flag[0] == "--compile_cache":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ood_eval.main(argv)
+        return
+    ood_eval.check_ported(ood_eval.build_parser().parse_args(argv + ["--visualize_clusters"]))
+    with pytest.raises(FileNotFoundError, match="x.yaml"):
+        ood_eval.main(argv)

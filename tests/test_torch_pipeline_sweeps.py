@@ -54,6 +54,73 @@ def test_generate_clusters_on_fixture_matches_jax(cos_acts, method):
         assert max(sizes) > 1, "every group got one centroid: the case checks little"
 
 
+@pytest.mark.parametrize("method", ["GMM", "BGMM", "MeanShift"])
+@pytest.mark.usefixtures("one_thread")
+def test_a7c_clusters_and_decisions_match_jax(fx, cos_acts, method):
+    """L2_cl_stride with GMM, BGMM and MeanShift fitted on the fixture's InD
+    activations (the JAX package's, given to both) after the same
+    np.random.seed: the same centroids (1e-6) and thresholds (1e-5), and
+    the same decisions on the OoD batches (K3's plain version here)."""
+    from ood_in_object_detection_tpu.ood import pipeline as jpipe
+    from test_torch_pipeline import _flat
+
+    jm = jmethods.DistanceOODMethod.from_name("L2_cl_stride", cluster_method=method)
+    tm = tmethods.DistanceOODMethod.from_name("L2_cl_stride", cluster_method=method)
+    for pipe, m in ((jpipe, jm), (tpipe, tm)):
+        np.random.seed(0)
+        pipe.fit_ind_pipeline(m, {id(m): cos_acts[0]}, tpr=0.95)
+    sizes = []
+    for jrow, trow in zip(jm.clusters, tm.clusters):
+        for j, t in zip(jrow, trow):
+            assert np.shape(t) == np.shape(j)
+            if np.ndim(j) == 2:
+                np.testing.assert_allclose(t, j, rtol=1e-6, atol=1e-7)
+                sizes.append(len(j))
+    assert sizes, "no group was fitted"
+    if method != "MeanShift":  # one mode a group at these widths
+        assert max(sizes) > 1, "every group got one centroid: the case checks little"
+    jt, tt = _flat(jm.thresholds), _flat(tm.thresholds)
+    np.testing.assert_array_equal(np.isnan(tt), np.isnan(jt))
+    np.testing.assert_allclose(tt, jt, rtol=1e-5)
+    neck = fx["tdet"].neck_channels()
+    decided = []
+    for batch in fx["batches"]["ood"]:
+        # the JAX detector's outputs on both sides: the decision is the fit's
+        out = fx["jdet"].predict(batch["images"], conf_thres=CONF_TEST)
+        jdec = np.asarray(jpipe._decisions_for_method(jm, out, fx["jdet"].neck_channels()))
+        tout = fx["tdet"].predict(batch["images"], conf_thres=CONF_TEST)
+        tdec = tpipe._decisions_for_method(tm, tout, neck).numpy()
+        np.testing.assert_array_equal(tdec, jdec)
+        decided.append(tdec[tout.det.valid.numpy()])
+    assert len(np.concatenate(decided)) > 10
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_cli_bgmm_with_score_curves(fx, tmp_path, monkeypatch):
+    """cli.ood_eval --cluster_method BGMM --visualize_clusters on the
+    fixture: one row, and one score-curve PNG per grid search, named by
+    each (class, stride) group's tag."""
+    from ood_in_object_detection_torch import constants as C
+    from ood_in_object_detection_torch.cli import ood_eval
+    from ood_in_object_detection_torch.core.config import CUSTOM_HYP
+
+    monkeypatch.setattr(C, "RESULTS_PATH", tmp_path / "results")
+    monkeypatch.setattr(C, "STORAGE_PATH", tmp_path / "storage")
+    monkeypatch.setattr(CUSTOM_HYP.clusters, "VISUALIZE", False)  # the CLI sets it
+    monkeypatch.setattr(ood_eval, "load_detector", lambda args, default_nc=20: fx["tdet"])
+    tags = []
+    fit = tmethods.fit_cluster_labels
+    monkeypatch.setattr(tmethods, "fit_cluster_labels",
+                        lambda *a, fit=fit, **k: tags.append(k["tag"]) or fit(*a, **k))
+    np.random.seed(0)
+    rows = ood_eval.main(["--ood_method", "Cosine_cl_stride", "--cluster_method", "BGMM",
+                          "--visualize_clusters", *_cli_args(fx)])
+    assert len(rows) == 1 and rows[0]["Method"] == "Cosine_cl_stride"
+    assert CUSTOM_HYP.clusters.VISUALIZE
+    pngs = sorted(p.name for p in (tmp_path / "results" / "cluster_viz").glob("*.png"))
+    assert tags and pngs == sorted(f"{t}_BGMM_silhouette_scores.png" for t in tags)
+
+
 def _run_both_sweeps(fx, tmp_path, monkeypatch, argv, grids, seed_acts=True):
     """``--benchmark`` through the port's CLI and the JAX package's on the
     fixture, each with its own detector, storage, results and cache; the
