@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only e2e_train      # the training phase alone
     python3 chip_smoke.py --only e2e_dp         # the data-parallel phase alone
     python3 chip_smoke.py --only e2e_clusters   # MeanShift, GMM, BGMM through the CLI
+    python3 chip_smoke.py --only e2e_sp         # the spatial-parallel phase alone
 
 Phases, each printing one JSON line (a failure anywhere raises, and the
 script exits non-zero without printing a result):
@@ -143,6 +144,29 @@ script exits non-zero without printing a result):
    (digest), then ms a step, each rank's peak memory and the gradient
    all-reduce's seconds and megabytes; a rank that fails fails the phase.
    ``python3 chip_smoke.py --only e2e_dp`` runs it alone.
+9c. e2e_sp (spatial parallelism, parallel/spatial.py): e2e's detector
+   through ``Detector.predict_sharded`` on meshes whose ``sp`` axis splits
+   the image height, the card named as often as the mesh has entries:
+   ``sp`` 2 and 4 at batch 1 and ``data`` 2 x ``sp`` 2 at batch 8, each
+   against ``Detector.predict`` of the same images with the counters reset
+   just before and read just after (f32: each layer within SP_LAYER_REL of
+   the unsharded layer on the same input, and the outputs within the
+   model's SP_F32_LIMITS; where the neck maps are bit-equal, integer
+   outputs equal and DP_PREDICT_LIMITS; K4 launched once a slab, K1 and K2
+   once a batch shard); e2e_bf16's detector at ``sp`` 2, batch 8, within
+   SP_BF16_LIMITS (bit-equal); two halo faults planted at ``sp`` 2 (one
+   layer's window off by a row, max-pools without their halo rows) that
+   the layer check must catch (``--only e2e_sp --reference-seeds 2``
+   takes the readings of all these limits, sp_spread); K4 on the
+   second shard's halo slab against its plain version and its kept rows
+   against the unsharded K4's (STEM_TOL), the slab's times; a
+   MicroBatchServer over ``sp`` 2 serving 16 requests, each equal to its
+   group's direct predict_sharded row; yolov9c, yolov10l, yolo11l and
+   yolo12l at ``sp`` 2, batch 1. Printed: sharded and predict ms (CUDA
+   events), halo rows and bytes a step, the threads' barrier wait (host
+   ms); one mesh over every card where more than one is visible, else a
+   line that it was not run. ``python3 chip_smoke.py --only e2e_sp`` runs
+   it alone (with bench_k3's profile_coverage at its start and end).
 10. reference: one image through the card (kernels) and through the CPU
    (plain PyTorch versions) with the same weights; maps, detections and
    taps must agree within REF_LIMITS, and each layer (the stem also
@@ -159,7 +183,8 @@ script exits non-zero without printing a result):
    function where there is one (library_ms). K1 also gets each case's
    device time per phase, mask and sweep (torch.profiler, phase_ms) and
    valid candidates per image; K2 and K3 their device time beside the
-   wrapper's (device_ms); K3 each case's times and cuBLAS's x @ C.T plus
+   wrapper's (device_ms: CUDA events around calls queued behind a spinning
+   kernel, as torch.profiler drops records); K3 each case's times and cuBLAS's x @ C.T plus
    the masked minimum (cublas_amin_ms); K2 gets Q built from wx and wy plus
    torch.bmm (library_with_q_ms) and, per level, the count of non-empty
    rows and the median, p99 and largest support rectangle; K4 gets the
@@ -169,10 +194,14 @@ script exits non-zero without printing a result):
    direct_ms, dispatch_us; ops/library.py). K2 (f32) and K3 also
    carry ``eul_rank``: their numbers at the EUL rank's inputs, and K3
    ``cluster_banks``: its numbers at the fitted banks of e2e_sweeps and
-   e2e_clusters. Launch counts add up every main path's run (e2e, e2e_eul,
-   e2e_sweeps, e2e_clusters, e2e_serve,
-   e2e_bf16, e2e_bundle with its serving processes, e2e_dp); e2e_sdr's entry
-   carries its own;
+   e2e_clusters; K4 ``sp_slab``: its numbers on e2e_sp's halo slab. Every
+   ``device_ms`` of the phase must be above 0 (the instrument missed a
+   kernel that launched; K3's is taken by CUDA events around calls queued
+   behind a spinning kernel, as torch.profiler drops device records late
+   in the script: bench_k3.profile_coverage, printed). Launch counts add up
+   every main path's run (e2e, e2e_eul, e2e_sweeps, e2e_clusters,
+   e2e_serve, e2e_bf16, e2e_bundle with its serving processes, e2e_dp,
+   e2e_sp); e2e_sdr's entry carries its own;
    e2e_families' entries carry their own model's counts, e2e_train's those
    of its last validation.
 13. e2e_families (the other YOLO families on the f32 path): yolov9c,
@@ -235,6 +264,7 @@ The last lines are the ``{"kernels": [...]}`` object and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -558,7 +588,7 @@ def eul_breakdown(torch, det, dm, batch):
     fmap = p3.reshape(BATCH, -1, p3.shape[-1])
     k2 = dict(shape=list(p3.shape), rows=[BATCH, n], max_abs_err=k2_err, rel_err=k2_rel,
               ms=cuda_ms(lambda: R.roi_contract(p3, wx, wy)),
-              device_ms=BK3.device_ms(lambda: R.roi_contract(p3, wx, wy), 20),
+              device_ms=BK3.queued_ms(lambda: R.roi_contract(p3, wx, wy), 20),
               plain_ms=cuda_ms(lambda: R.roi_contract_plain(p3, wx, wy)),
               **bound(nbytes(p3, wx, wy, got), float(cells.sum()) * 2.0 * p3.shape[-1], "f32"),
               library_ms=cuda_ms(lambda: torch.bmm(q, fmap)),
@@ -699,7 +729,6 @@ def cluster_banks_entry(torch, det, methods, images, names=("all", "KMeans")) ->
     MeanShift, GMM and BGMM), on the OoD batch's features: the wrapper's
     time, its device time, the plain version's time and error, the bound
     and cuBLAS's x @ C.T plus the masked minimum."""
-    from ood_in_object_detection_torch.ood import distance as D
     from ood_in_object_detection_torch.ood.pipeline import distance_features
     from ood_in_object_detection_torch.scripts import bench_k3 as BK3
 
@@ -711,9 +740,6 @@ def cluster_banks_entry(torch, det, methods, images, names=("all", "KMeans")) ->
         r = BK3.measure(feats, groups, kmask, m.metric, reps=20)
         if "error" in r or not r["agrees"]:
             raise AssertionError(f"min_group_distance at the {name} bank: {r}")
-        if not r["device_ms"]:  # a profile that caught no kernel: once more, else unknown
-            r["device_ms"] = BK3.device_ms(
-                lambda: D.min_group_distances(feats, groups, kmask, m.metric), 20) or None
         banks[name] = dict(largest_k=int(kmask.sum(1).max()), **{
             k: r[k] for k in ("shape", "valid_centroids", "empty_groups", "max_abs_err", "ms",
                               "device_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2216,6 +2242,601 @@ def phase_e2e_dp(torch, det, ind, ood, root, env) -> dict:
     return _added(*launches)
 
 
+# spatial parallelism (e2e_sp): predict and the server over sp meshes, one
+# card named several times where it is the only one
+SP_KERNELS = ("greedy_keep", "roi_contract", "fused_stem")
+SP_SERVE_REQUESTS = 16
+# predict_sharded against Detector.predict of the same images. Where the
+# neck maps come out bit-equal, the rest must too: integer outputs equal,
+# DP_PREDICT_LIMITS. cuDNN may run another algorithm on a slab's shape than
+# on the whole map's (FFT convolutions, DSE::regular_fft_*, on f32 slabs at
+# batch 1 and 8 on the H100: sp_spread's sharded_only_kernels), and these
+# random networks amplify a difference in the last bits layer after layer
+# (card against CPU: REF_LIMITS), so detections near a tie or at the 300th
+# place change sides (cudnn.benchmark, cudnn.deterministic and
+# CUDNN_CONV_WSCAP_DBG=0 leave the FFT choice as it is; PyTorch's own
+# convolutions differ too, by shape). So every f32 run is held twice:
+# - layer by layer (sp_layer_spread): each layer of the sharded forward
+#   against the same layer run unsharded on the sharded run's own input to
+#   it, as a share of the layer output's largest magnitude, within
+#   SP_LAYER_REL. No amplification: a sound run differs by one layer's
+#   rounding, a halo fault shows at its own layer (sp_fault's window_shift
+#   and pool_no_halo are planted in every e2e_sp run and must fail it);
+# - end to end, per model (SP_F32_LIMITS): the neck maps' difference as a
+#   share of their largest magnitude, the share of detection slots whose
+#   valid / class / anchor differ, and boxes (px), confidences and RoI /
+#   exact taps (share of scale) over the slots that agree.
+# Both set from `python3 chip_smoke.py --only e2e_sp --reference-seeds 2`
+# (sp_spread: yolov8l seeds 0-1 at sp 2 and 4, batch 1 and 8, the families
+# at sp 2 batch 1; sound and with each of SP_FAULTS; PERF.md section 6) and
+# the e2e_sp runs on the H100. Layers: sound runs read <= 4.1e-6 (yolov8l,
+# sp 2 at batch 8; FFT on the slab), faults >= 8.5e-4 (pool_edge_zero in
+# yolo11l; window_shift >= 0.46, pool_no_halo >= 0.44). End to end, sound
+# worst -> limit (about twice it), least faulty: yolov8l neck 4.8e-4 -> 1e-3
+# (pool_edge_zero 2.3e-3), slots 0.049 -> 0.1, boxes 0.53 px -> 1, conf
+# 1.3e-5 -> 3e-5, taps 4.6e-3 -> 1e-2; yolov9c 5.3e-4, 0.073, 0.32 px,
+# 3.0e-6, 1.8e-3 (pool_edge_zero neck 9.9e-3); yolov10l, which amplifies
+# most (REF_LIMITS), 1.2e-3, 0.153, 1.03 px, 3.1e-5, 4.5e-3 (pool_edge_zero
+# neck 4.4e-3); yolo11l and yolo12l run the same convolution algorithms on
+# a slab as on the whole map and read 0 on every seed: bit-equal.
+SP_LAYER_REL = 1e-4
+SP_F32_LIMITS = {
+    "yolov8l": {"neck_rel": 1e-3, "flip_share": 0.1, "boxes_px": 1.0, "conf": 3e-5,
+                "taps_rel": 1e-2},
+    "yolov9c": {"neck_rel": 1.5e-3, "flip_share": 0.15, "boxes_px": 1.0, "conf": 1e-5,
+                "taps_rel": 5e-3},
+    "yolov10l": {"neck_rel": 2.5e-3, "flip_share": 0.3, "boxes_px": 2.0, "conf": 6e-5,
+                 "taps_rel": 1e-2},
+    "yolo11l": {"neck_rel": 0.0, "flip_share": 0.0, "boxes_px": 0.0, "conf": 0.0,
+                "taps_rel": 0.0},
+    "yolo12l": {"neck_rel": 0.0, "flip_share": 0.0, "boxes_px": 0.0, "conf": 0.0,
+                "taps_rel": 0.0},
+}
+# bf16 at batch 8 (the bf16 check's) reads 0.0 on both seeds, bit-equal:
+# its limits are 0. (bf16 at batch 1 reads neck 0.39-0.59 and 99 % of
+# slots against the fault's >= 0.81: a slab there takes another bf16 GEMM
+# tile, and a random bf16 network turns one rounding into other detections.)
+SP_BF16_LIMITS = {"neck_rel": 0.0, "flip_share": 0.0, "boxes_px": 0.0, "conf": 0.0,
+                  "taps_rel": 0.0}
+SP_FAULTS = ("no_halos", "no_halo_first", "window_shift", "pool_no_halo", "pool_edge_zero")
+CONV_KERNEL_MARKS = ("fprop", "fft", "winograd", "conv", "gemm", "gemv", "xmma")
+
+
+def card0(n: int) -> list:
+    """Mesh entries naming card 0 ``n`` times (the CPU in a rehearsal with
+    DEVICE "cpu")."""
+    return ["cpu"] * n if DEVICE == "cpu" else [0] * n
+
+
+def sp_stats(det) -> dict:
+    """The last sp run's exchange counts, rows and bytes taken from other
+    shards (halos and gathers, over every shard) and the shards' host
+    milliseconds at the barrier (sum and largest)."""
+    shards = [s for g in det.last_sp_stats for s in g]
+    return dict(exchanges_per_shard=max(s.exchanges for s in shards),
+                halo_rows=sum(s.halo_rows for s in shards),
+                halo_bytes=sum(s.halo_bytes for s in shards),
+                gather_rows=sum(s.gather_rows for s in shards),
+                gather_bytes=sum(s.gather_bytes for s in shards),
+                barrier_wait_ms=sum(s.wait_s for s in shards) * 1e3,
+                barrier_wait_ms_max_shard=max(s.wait_s for s in shards) * 1e3)
+
+
+def sp_spread_of(torch, got, want) -> dict:
+    """How far ``got`` lies from ``want``: the share of detection slots
+    (valid in either) whose valid, class or anchor differ; over the slots
+    valid in both with the same anchor, boxes (px), confidences and the
+    RoI and exact taps as a share of their largest magnitude; the neck maps
+    as a share of their largest magnitude."""
+    a, b = got.det, want.det
+    either = a.valid | b.valid
+    same = (a.valid == b.valid) & (a.cls == b.cls) & (a.anchor_idx == b.anchor_idx)
+    both = a.valid & b.valid & (a.anchor_idx == b.anchor_idx)
+
+    def rel(x, y):
+        return float((x.float() - y.float()).abs().max() / y.float().abs().max().clamp(min=1e-30))
+
+    def worst(x, y):
+        return float((x - y)[both].abs().max()) if bool(both.any()) else 0.0
+
+    def taps(x, y):
+        return rel(x[both], y[both]) if bool(both.any()) else 0.0
+
+    taps_rel = max(taps(got.roi_feats, want.roi_feats), taps(got.exact_feats, want.exact_feats))
+    return dict(flip_share=float((either & ~same).sum()) / max(1, int(either.sum())),
+                boxes_px=worst(a.boxes, b.boxes), conf=worst(a.conf, b.conf),
+                taps_rel=taps_rel,
+                neck_rel=max(rel(x, y) for x, y in zip(got.neck, want.neck)))
+
+
+def sp_within(spread, limits) -> bool:
+    """Within DP_PREDICT_LIMITS's measures, no detection slot differing."""
+    return all(spread[k] <= limits[k] for k in ("boxes_px", "conf", "taps_rel")) and \
+        spread["flip_share"] == 0.0
+
+
+def conv_kernels(torch, fn) -> set:
+    """The convolution kernels (and GEMMs) one call of ``fn`` runs on the
+    card, by name (torch.profiler)."""
+    rows, _ = profile_rows(torch, fn, 1)
+    return {k for _, k, _ in rows if any(m in k.lower() for m in CONV_KERNEL_MARKS)}
+
+
+def sp_layer_spread(torch, det, images, mesh) -> dict:
+    """Each top-level layer of predict_sharded's forward on ``mesh`` against
+    the same layer run unsharded on the sharded run's own input to it (the
+    shards' inputs joined over their rows and batch shards), as a share of
+    the layer output's largest magnitude; on the fused stem route, the
+    stem (layers 0 and 1: fused_stem on the whole image) against the
+    shards' stem rows (layer 2's input). -> the worst layer and every
+    layer's reading. The mesh's entries must be the model's own card (the
+    forward hooks sit on its model, not on replicas)."""
+    from ood_in_object_detection_torch.engine import normalise_images
+    from ood_in_object_detection_torch.models.yolo import fused_stem
+    from ood_in_object_detection_torch.parallel import spatial
+
+    model = det.model
+    seen = {}
+
+    def hook(li):
+        def record(_mod, args, out):
+            shard = spatial.current()
+            if shard is not None:
+                seen[(li, id(shard.group.stats), shard.rank)] = (args[0], out)
+        return record
+
+    hooks = [m.register_forward_hook(hook(li)) for li, m in enumerate(model.model)]
+    try:
+        with torch.no_grad():
+            det.predict_sharded(images, mesh, conf_thres=CONF)
+    finally:
+        for h in hooks:
+            h.remove()
+    groups = [id(g) for g in det.last_sp_stats]
+    sp = len(det.last_sp_stats[0])
+
+    def join(parts):  # [batch shard][sp shard] -> one map (or list of maps)
+        first = parts[0][0]
+        if isinstance(first, torch.Tensor):
+            return torch.cat([torch.cat([p.to(det.device) for p in g], dim=-2) for g in parts])
+        return [join([[p[i] for p in g] for g in parts]) for i in range(len(first))]
+
+    def rel(x, y):
+        if isinstance(y, torch.Tensor):
+            return float((x.float() - y.float()).abs().max()
+                         / y.float().abs().max().clamp(min=1e-30))
+        return max(rel(a, b) for a, b in zip(x, y))
+
+    layers = {}
+    with torch.no_grad():
+        for li in sorted({k[0] for k in seen}):
+            recs = [[seen[(li, g, r)] for r in range(sp)] for g in groups]
+            x = join([[rec[0] for rec in g] for g in recs])
+            y = join([[rec[1] for rec in g] for g in recs])
+            layers[str(li)] = rel(y, model.model[li](x))
+        whole = normalise_images(torch.as_tensor(images).to(det.device))
+        whole = whole.permute(0, 3, 1, 2).contiguous().to(model.compute_dtype)
+        if 0 not in {k[0] for k in seen} and model.spec[2][0] == -1:
+            recs = [[seen[(2, g, r)][0] for r in range(sp)] for g in groups]
+            layers["stem"] = rel(join(recs), fused_stem(whole, model.model[0], model.model[1],
+                                                        model.compute_dtype))
+    worst = max(layers, key=layers.get)
+    return dict(worst_layer=worst, worst_rel=layers[worst], layers=layers)
+
+
+def sp_fault(kind: str, at: int = 0):
+    """Plant a halo fault into parallel/spatial.Shard (``kind`` one of
+    SP_FAULTS); -> a function that undoes it and returns how many of the
+    shards' exchanges the fault changed.
+    - no_halos: every shard takes zeros for its neighbours' rows, as if its
+      slab were an image of its own;
+    - no_halo_first: the same at the first exchange alone (the first conv
+      after the stem);
+    - window_shift: the ``at``-th window (a conv or pool taller than 1) of
+      every shard reads its rows one row lower, the neighbours' included:
+      one layer's halo off by a row;
+    - pool_no_halo: max-pools take -inf for the neighbours' rows, padding at
+      the shard's edge as at the image's (the pool rule left out);
+    - pool_edge_zero: max-pools fill past the image's edge with 0 instead
+      of -inf (changes a value only where an edge window holds no positive
+      one)."""
+    import torch
+
+    from ood_in_object_detection_torch.parallel import spatial
+
+    Shard, changed = spatial.Shard, []
+    rows, halo_rows, window = Shard._rows, Shard._halo_rows, Shard.window
+
+    def own_rows_only(self, parts, *args):
+        if kind == "no_halos" or (kind == "no_halo_first" and self._gen == 1) or \
+                getattr(self, "_fault_pool", False):
+            changed.append(1)
+            fill = float("-inf") if kind == "pool_no_halo" else 0.0
+            parts = [p if j == self.rank else torch.full_like(p, fill)
+                     for j, p in enumerate(parts)]
+        return rows(self, parts, *args)
+
+    def shifted(self, parts, starts, height, lo, hi, fill):
+        self._fault_windows = getattr(self, "_fault_windows", 0) + 1
+        if self._fault_windows == at:
+            changed.append(1)
+            return halo_rows(self, parts, starts, height, lo + 1, hi + 1,
+                             0.0 if fill is None else fill)
+        return halo_rows(self, parts, starts, height, lo, hi, fill)
+
+    def pool_window(self, x, k, s, p, fill):
+        if kind == "pool_edge_zero" and fill == float("-inf"):
+            changed.append(1)
+            fill = 0.0
+        self._fault_pool = kind == "pool_no_halo" and fill == float("-inf")
+        try:
+            return window(self, x, k, s, p, fill)
+        finally:
+            self._fault_pool = False
+
+    patches = {"no_halos": {"_rows": own_rows_only}, "no_halo_first": {"_rows": own_rows_only},
+               "window_shift": {"_halo_rows": shifted},
+               "pool_no_halo": {"window": pool_window, "_rows": own_rows_only},
+               "pool_edge_zero": {"window": pool_window}}[kind]
+    for name, fn in patches.items():
+        setattr(Shard, name, fn)
+
+    def undo():
+        Shard._rows, Shard._halo_rows, Shard.window = rows, halo_rows, window
+        return len(changed)
+
+    return undo
+
+
+def sp_windows(torch, det, images, mesh) -> int:
+    """How many windows (convs and pools taller than 1) a shard of
+    ``mesh`` takes in one forward: window_shift's middle is half of it."""
+    from ood_in_object_detection_torch.parallel import spatial
+
+    orig, counts = spatial.Shard._halo_rows, []
+
+    def counting(self, *args):
+        if self.rank == 0:
+            counts.append(1)
+        return orig(self, *args)
+
+    spatial.Shard._halo_rows = counting
+    try:
+        with torch.no_grad():
+            det.predict_sharded(images, mesh, conf_thres=CONF)
+    finally:
+        spatial.Shard._halo_rows = orig
+    return len(counts) // len(det.last_sp_stats)
+
+
+def sp_faulty_run(torch, det, images, mesh, kind: str, want, layers: bool) -> dict:
+    """predict_sharded with ``kind`` planted (window_shift at the middle
+    window): its spread against ``want`` and, with ``layers``, its
+    layer-by-layer spread; ``changed``: the exchanges the fault changed (0:
+    the model has no window it applies to)."""
+    at = sp_windows(torch, det, images, mesh) // 2 if kind == "window_shift" else 0
+    undo = sp_fault(kind, at)
+    try:
+        with torch.no_grad():
+            got = det.predict_sharded(images, mesh, conf_thres=CONF)
+        out = sp_spread_of(torch, got, want)
+        if layers:
+            lay = sp_layer_spread(torch, det, images, mesh)
+            out.update(layer_worst=lay["worst_layer"], layer_rel=lay["worst_rel"])
+    finally:
+        changed = undo()
+    return dict(out, fault=kind, at=at, changed=changed)
+
+
+def sp_predict_check(torch, det, images, mesh, name=None) -> dict:
+    """predict_sharded on an sp ``mesh`` against det.predict of the same
+    images, the counters reset just before and read just after each. f32:
+    every layer within SP_LAYER_REL of the unsharded layer on the same
+    input (sp_layer_spread; where the mesh names the model's card alone)
+    and the outputs within ``name``'s SP_F32_LIMITS; bf16: within
+    SP_BF16_LIMITS (bit-equal). Where the neck maps are bit-equal, integer
+    outputs equal and DP_PREDICT_LIMITS too. K4 launched once a slab, K1
+    and K2 once a batch shard as often as predict launches them; ms of
+    both (CUDA events), halo rows and bytes, barrier wait."""
+    bf16 = det.model.compute_dtype == torch.bfloat16
+    name = name or MODEL
+    reset_counters()
+    want = det.predict(images, conf_thres=CONF)
+    torch.cuda.synchronize()
+    per = read_counters()
+    reset_counters()
+    got = det.predict_sharded(images, mesh, conf_thres=CONF)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    stats = sp_stats(det)
+    shards, sp = len(mesh.sp_groups), mesh.shape["sp"]
+    k2 = "roi_contract_bf16" if bf16 else "roi_contract"
+    expected = {"fused_stem": shards * sp, "greedy_keep": shards * per["greedy_keep"],
+                k2: shards * per[k2]}
+    spread = sp_spread_of(torch, got, want)
+    ints = all(torch.equal(getattr(got.det, f), getattr(want.det, f))
+               for f in ("valid", "cls", "anchor_idx")) and \
+        torch.equal(got.stride_level, want.stride_level)
+    limits = SP_BF16_LIMITS if bf16 else SP_F32_LIMITS[name]
+    own_card = all(d == det.device for g in mesh.sp_groups for d in g)
+    layers = sp_layer_spread(torch, det, images, mesh) if not bf16 and own_card else None
+    exact = spread["neck_rel"] == 0.0
+    ok = all(spread[k] <= v for k, v in limits.items()) and \
+        (layers is None or layers["worst_rel"] <= SP_LAYER_REL) and \
+        (not exact or (ints and sp_within(spread, DP_PREDICT_LIMITS))) and \
+        got.det.boxes.device == mesh.batch_devices[0] and \
+        all(launches[k] == v for k, v in expected.items())
+    return dict(model=name, mesh=dict(mesh.shape),
+                devices=[str(d) for d in mesh.devices.reshape(-1)],
+                batch=int(images.shape[0]), dtype="bf16" if bf16 else "f32",
+                neck_bit_equal=exact, ints_equal=ints,
+                within_dp_predict_limits=bool(ints and sp_within(spread, DP_PREDICT_LIMITS)),
+                spread=spread, limits=limits, layers=layers, layer_limit=SP_LAYER_REL,
+                ok=bool(ok), detections=int(want.det.valid.sum()),
+                launches={k: launches[k] for k in expected}, launches_expected=expected,
+                sp=stats,
+                sharded_ms=cuda_ms(lambda: det.predict_sharded(images, mesh, conf_thres=CONF),
+                                   reps=10),
+                predict_ms=cuda_ms(lambda: det.predict(images, conf_thres=CONF), reps=10))
+
+
+def sp_planted(torch, det, images, mesh, kinds) -> dict:
+    """The layer check's teeth, in every e2e_sp run: each halo fault of
+    ``kinds`` (sp_fault) planted on ``mesh`` must read above SP_LAYER_REL
+    and change at least one exchange."""
+    with torch.no_grad():
+        want = det.predict(images, conf_thres=CONF)
+    runs = {kind: sp_faulty_run(torch, det, images, mesh, kind, want, layers=True)
+            for kind in kinds}
+    caught = {k: bool(r["changed"]) and r["layer_rel"] > SP_LAYER_REL for k, r in runs.items()}
+    return dict(runs=runs, caught=caught, ok=all(caught.values()))
+
+
+def sp_cudnn_modes(torch):
+    """cuDNN settings under which sp_spread also reads f32 sp 2 at batch 1
+    (both sides under the setting): name -> context manager."""
+    def flags(**kw):
+        @contextlib.contextmanager
+        def cm():
+            keep = {k: getattr(torch.backends.cudnn, k) for k in kw}
+            for k, v in kw.items():
+                setattr(torch.backends.cudnn, k, v)
+            try:
+                yield
+            finally:
+                for k, v in keep.items():
+                    setattr(torch.backends.cudnn, k, v)
+        return cm
+    return {"cudnn_benchmark": flags(benchmark=True),
+            "cudnn_deterministic": flags(deterministic=True),
+            "cudnn_off": flags(enabled=False)}
+
+
+def sp_spread(torch, n_seeds: int) -> None:
+    """The readings SP_LAYER_REL, SP_F32_LIMITS and SP_BF16_LIMITS stand
+    on: yolov8l seeded with SEED + s for ``n_seeds`` seeds, BatchNorm
+    calibrated and head spread on its own batch, sp 2 and sp 4 at batch 1
+    and sp 2 at batch 8, in f32 and bf16; the families at sp 2, batch 1,
+    f32 (seeded model_seed + s); each against Detector.predict, sound (and
+    whether the sharded run's convolutions are predict's, conv_kernels)
+    and with each of SP_FAULTS planted; f32 layer by layer too
+    (sp_layer_spread). yolov8l's f32 sp 2 at batch 1 is also read under
+    other cuDNN settings (sp_cudnn_modes; ints_equal). One line a reading,
+    then per model and dtype the worst sound reading and the least faulty
+    one per fault. Asserts nothing."""
+    from ood_in_object_detection_torch.engine import Detector
+    from ood_in_object_detection_torch.parallel import make_mesh, spatial
+
+    (flags,), = spatial.run([(spatial.SpGroup(card0(1)), lambda _: (
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32), [None], [0])])
+    emit("sp_thread_flags", cudnn_allow_tf32=flags[0], matmul_allow_tf32=flags[1])
+    worst, least = {}, {}
+
+    def note(acc, pick, key, r):
+        slot = acc.setdefault(key, {})
+        for k, v in r.items():
+            if isinstance(v, float):
+                slot[k] = pick(slot.get(k, v), v)
+
+    def read(d, name, key, sp, batch, x, s):
+        mesh = make_mesh(sp=sp, devices=card0(sp))
+        with torch.no_grad():
+            want = d.predict(x, conf_thres=CONF)
+            got = d.predict_sharded(x, mesh, conf_thres=CONF)
+        only = conv_kernels(torch, lambda: d.predict_sharded(x, mesh, conf_thres=CONF)) \
+            - conv_kernels(torch, lambda: d.predict(x, conf_thres=CONF))
+        r = sp_spread_of(torch, got, want)
+        if key == "f32":
+            lay = sp_layer_spread(torch, d, x, mesh)
+            r.update(layer_worst=lay["worst_layer"], layer_rel=lay["worst_rel"])
+        emit("sp_reading", model=name, seed=s, dtype=key, sp=sp, batch=batch, mode="sound",
+             same_algorithms=not only, sharded_only_kernels=sorted(k[:80] for k in only), **r)
+        note(worst, max, f"{name}_{key}", r)
+        for kind in SP_FAULTS:
+            r = sp_faulty_run(torch, d, x, mesh, kind, want, layers=key == "f32")
+            emit("sp_reading", model=name, seed=s, dtype=key, sp=sp, batch=batch, mode=kind,
+                 **r)
+            if r["changed"]:
+                note(least, min, f"{name}_{key}_{kind}", r)
+        if name == MODEL and key == "f32" and (sp, batch) == (2, 1):
+            for mode, cm in sp_cudnn_modes(torch).items():
+                with cm(), torch.no_grad():
+                    want = d.predict(x, conf_thres=CONF)
+                    got = d.predict_sharded(x, mesh, conf_thres=CONF)
+                    ints = all(torch.equal(getattr(got.det, f), getattr(want.det, f))
+                               for f in ("valid", "cls", "anchor_idx"))
+                emit("sp_reading", model=name, seed=s, dtype=key, sp=sp, batch=batch,
+                     mode=mode, ints_equal=ints, **sp_spread_of(torch, got, want))
+
+    for s in range(n_seeds):
+        images = make_batches(np.random.default_rng(SEED + 40 + s), 1)[0]
+        det = family_detector(torch, MODEL, [images], seed=SEED + s)
+        det16 = Detector.create(MODEL, nc=NC, img_size=IMG, device=DEVICE, dtype=torch.bfloat16,
+                                state_dict=det.model.state_dict())
+        for d, key in ((det, "f32"), (det16, "bf16")):
+            for sp, batch in ((2, 1), (4, 1), (2, BATCH)):
+                read(d, MODEL, key, sp, batch, images[:batch], s)
+        del det, det16
+        for name in FAMILIES:
+            fdet = family_detector(torch, name, [images], seed=model_seed(name) + s)
+            read(fdet, name, "f32", 2, 1, images[:1], s)
+            del fdet
+        torch.cuda.empty_cache()
+    emit("sp_spread", seeds=n_seeds, layer_limit=SP_LAYER_REL, f32_limits=SP_F32_LIMITS,
+         bf16_limits=SP_BF16_LIMITS, worst_sound=worst, least_faulty=least)
+
+
+def sp_slab_case(torch, det, images) -> dict:
+    """K4 on the halo slab of sp 2's second shard (image rows [IMG/2 - 4,
+    IMG) of one image, STEM_OVERLAP rows above its own) against its plain
+    version on the same slab, in f32 and bf16 (STEM_TOL), and its rows
+    past the first against the unsharded K4's rows of that shard (the same
+    limits); the slab's times (stem_timings)."""
+    from ood_in_object_detection_torch.ops import stem as S
+    from ood_in_object_detection_torch.parallel.spatial import STEM_OVERLAP
+
+    x = torch.from_numpy(images[:1]).to(DEVICE).permute(0, 3, 1, 2).float() * (1 / 255)
+    lo = IMG // 2 - STEM_OVERLAP
+    slab = x[:, :, lo:].contiguous()
+    m0, m1 = det.model.model[0], det.model.model[1]
+    params = S.stem_conv_params(m0, m1)
+    out, failures = dict(case="sp_slab", shape=list(slab.shape), rows=[lo, IMG]), []
+    for dt, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        with torch.no_grad():
+            got = S.fused_stem(slab, m0, m1, dt).float()
+            ref = S.fused_stem_plain(slab, *params, dt).float()
+            whole = S.fused_stem(x.contiguous(), m0, m1, dt).float()[:, :, IMG // 8:]
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        kept = float((got[:, :, STEM_OVERLAP // 4:] - whole).abs().max() / whole.abs().max())
+        out[key] = dict(rel_err=rel, max_abs_err=float((got - ref).abs().max()),
+                        kept_rows_rel_err=kept)
+        emit("kernel_case", kernel="fused_stem", case="sp_slab", dtype=key,
+             shape=list(slab.shape), rel_err=rel, kept_rows_rel_err=kept)
+        if rel > STEM_TOL[key] or kept > STEM_TOL[key]:
+            failures.append(f"K4 on the sp slab {key}: rel err {rel}, kept rows {kept} > "
+                            f"{STEM_TOL[key]}")
+    out.update(stem_timings(torch, S, m0, m1, slab, torch.float32))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return out
+
+
+def sp_server_check(torch, det, images, mesh) -> dict:
+    """MicroBatchServer(mesh=) over ``mesh``: SP_SERVE_REQUESTS requests
+    queued from one thread (a 2 s wait fills each group), the counters reset
+    around them; each result equal, bit for bit, to its row of a direct
+    predict_sharded of its group as the server stacked it (sp_predict_check
+    holds predict_sharded against Detector.predict)."""
+    from ood_in_object_detection_torch.serving import MicroBatchServer
+
+    views = [images[k % len(images)].copy() for k in range(SP_SERVE_REQUESTS)]
+    index = {id(v): k for k, v in enumerate(views)}
+    groups = []
+    srv = MicroBatchServer(det, batch_size=BATCH, max_wait_ms=2000.0, conf_thres=CONF, mesh=mesh)
+    collect = srv._collect
+
+    def recording_collect():
+        group = collect()
+        if group is not None:
+            groups.append([index[id(r.image)] for r in group])
+        return group
+
+    srv._collect = recording_collect
+    srv.start()
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        futs = [srv.submit(v) for v in views]
+        results = [f.result(timeout=300) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        srv.stop()
+    bad = 0
+    for rows in groups:
+        batch = np.zeros((BATCH, IMG, IMG, 3), np.uint8)
+        batch[:len(rows)] = np.stack([views[k] for k in rows])
+        with torch.no_grad():
+            direct = det.predict_sharded(batch, mesh, conf_thres=CONF)
+        for j, k in enumerate(rows):
+            v = direct.det.valid[j]
+            r = results[k]
+            bad += not (r["num_valid"] == int(v.sum())
+                        and np.array_equal(r["boxes"], direct.det.boxes[j][v].cpu().numpy())
+                        and np.array_equal(r["conf"], direct.det.conf[j][v].cpu().numpy())
+                        and np.array_equal(r["cls"], direct.det.cls[j][v].cpu().numpy())
+                        and np.array_equal(r["logits"], direct.logits[j][v].cpu().numpy()))
+    return dict(requests=SP_SERVE_REQUESTS, groups=[len(g) for g in groups], mismatches=bad,
+                wall_s=wall, images_per_s=SP_SERVE_REQUESTS / wall,
+                launches={k: launches[k] for k in SP_KERNELS},
+                ok=bool(bad == 0 and all(launches[k] for k in SP_KERNELS)))
+
+
+def phase_e2e_sp(torch, det, det16, images, env) -> tuple:
+    """Spatial parallelism on e2e's yolov8l (f32, TF32 off) and its bf16
+    twin: predict_sharded on sp 2 and sp 4 at batch 1 and data 2 x sp 2 at
+    batch 8 (the card named as often as the mesh has entries; every card in
+    one sp mesh where more than one is visible) against Detector.predict
+    (sp_predict_check: f32 layer by layer and end to end), sp 2 at batch 8
+    in bf16 within SP_BF16_LIMITS, two halo faults planted at sp 2 that the
+    layer check must catch (sp_planted), K4 on a halo slab (sp_slab_case),
+    MicroBatchServer(mesh=sp 2)
+    (sp_server_check), and yolov9c, yolov10l, yolo11l and yolo12l at sp 2,
+    batch 1. -> (the launches of the phase's sharded runs, the slab case)."""
+    from ood_in_object_detection_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    failures, launches, checks = [], [], {}
+    n_cards = torch.cuda.device_count()
+    meshes = [("sp2", make_mesh(sp=2, devices=card0(2)), 1),
+              ("sp4", make_mesh(sp=4, devices=card0(4)), 1),
+              ("data2_sp2", make_mesh(data=2, sp=2, devices=card0(4)), BATCH)]
+    for key, mesh, batch in meshes:
+        r = checks[key] = sp_predict_check(torch, det, images[:batch], mesh)
+        launches.append(r["launches"])
+        if not r["ok"]:
+            failures.append(f"predict_sharded {key}: {r}")
+    r = checks["sp2_bf16"] = sp_predict_check(torch, det16, images, meshes[0][1])
+    launches.append(r["launches"])
+    if not r["ok"]:
+        failures.append(f"predict_sharded sp2 bf16: {r}")
+    if n_cards > 1:
+        r = checks["all_cards"] = sp_predict_check(torch, det, images[:1],
+                                                   make_mesh(sp=n_cards))
+        launches.append(r["launches"])
+        if not r["ok"]:
+            failures.append(f"predict_sharded over every card: {r}")
+    else:
+        checks["all_cards"] = "not run: one card is visible"
+    planted = checks["planted"] = sp_planted(torch, det, images[:1], meshes[0][1],
+                                             ("window_shift", "pool_no_halo"))
+    if not planted["ok"]:
+        failures.append(f"the layer check missed a planted halo fault: {planted}")
+    slab = sp_slab_case(torch, det, images)
+    server = sp_server_check(torch, det, images, meshes[0][1])
+    launches.append(server["launches"])
+    if not server["ok"]:
+        failures.append(f"server over sp 2: {server}")
+    families = {}
+    for name in FAMILIES:
+        fdet = family_detector(torch, name, [images])
+        r = families[name] = sp_predict_check(torch, fdet, images[:1], meshes[0][1], name)
+        launches.append(r["launches"])
+        if not r["ok"]:
+            failures.append(f"predict_sharded sp2 {name}: {r}")
+        del fdet
+        torch.cuda.empty_cache()
+    emit("e2e_sp", model=MODEL, img_size=IMG, nc=NC, cards=n_cards, card=env["nvidia_smi"],
+         checks=checks, server=server, families=families,
+         dp_predict_limits=DP_PREDICT_LIMITS, layer_limit=SP_LAYER_REL, limits_f32=SP_F32_LIMITS, limits_bf16=SP_BF16_LIMITS,
+         k4_slab={k: slab[k] for k in ("shape", "f32", "bf16")},
+         phase_seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("e2e_sp: " + "; ".join(failures))
+    full = {k: 0 for k in read_counters()}
+    return _added(full, *[{**full, **c} for c in launches]), slab
+
+
 def phase_xscale_stem(torch, images) -> list:
     """K4's second specialization (C1 96, C2 192) on yolo11x's stem: the
     model seeded, BatchNorm calibrated on ``images`` and head spread, its
@@ -2607,8 +3228,9 @@ def roi_entry(torch, R, name, replaces, out, launches, tol, model=MODEL):
     """K2 on every level's map with the real RoI + exact-tap axis weights of
     ``out``; against the plain version, torch.bmm of a materialised Q, and
     building Q from wx and wy plus torch.bmm; the wrapper's time (``ms``,
-    three levels, host included) and its device time (``device_ms``,
-    torch.profiler). Per level, the count of non-empty rows and their
+    three levels, host included) and its device time (``device_ms``, CUDA
+    events around calls queued behind a spinning kernel, bench_k3.queued_ms).
+    Per level, the count of non-empty rows and their
     support rectangles (cells)."""
     level_args, err, off, moved, ops, qs = [], 0.0, 0, 0, 0.0, []
     kind = "bf16" if out.neck[0].dtype == torch.bfloat16 else "f32"
@@ -2648,7 +3270,7 @@ def roi_entry(torch, R, name, replaces, out, launches, tol, model=MODEL):
             torch.bmm(q, f.reshape(b, h * w, c))
 
     from ood_in_object_detection_torch.ops import library as L
-    from ood_in_object_detection_torch.scripts.bench_k3 import device_ms
+    from ood_in_object_detection_torch.scripts.bench_k3 import queued_ms
 
     return dict(name=name, route="cuda", source="ood_in_object_detection_torch/csrc/roi_contract.cu",
                 replaces=replaces, launches=launches, max_abs_err=err,
@@ -2656,7 +3278,7 @@ def roi_entry(torch, R, name, replaces, out, launches, tol, model=MODEL):
                 **dispatch_ms(lambda: [L.roi_contract_op(*a) for a in level_args],
                               lambda: [L.roi_contract_cuda(*a) for a in level_args]),
                 dispatch_is="three levels, one operator call each",
-                device_ms=device_ms(lambda: [R.roi_contract(*a) for a in level_args], 20),
+                device_ms=queued_ms(lambda: [R.roi_contract(*a) for a in level_args], 20),
                 plain_ms=cuda_ms(lambda: [R.roi_contract_plain(*a) for a in level_args]),
                 **bound(moved, ops, kind),
                 library_ms=cuda_ms(lambda: [torch.bmm(q, f) for q, f in qs]),
@@ -2922,7 +3544,32 @@ def phase_kernels(torch, det, det16, dist_method, images, total, eul_parts, clus
 
     # K4: the stems of both paths
     entries.append(stem_entry(torch, S, det, images, total["fused_stem"]))
+
+    # every device time of a kernel that launched: 0.0 means the instrument
+    # missed the kernel (torch.profiler drops device records late in this
+    # script, bench_k3.profile_coverage; K3's device_ms is taken by CUDA
+    # events around calls queued behind a spinning kernel, bench_k3.queued_ms)
+    probe = BK3.profile_coverage()
+    emit("profile_coverage", at="kernels", **probe)
+    zero = [path for path, v in device_times(entries) if not v]
+    if zero:
+        raise AssertionError(f"kernels: the profiler shows no device time at {zero} for "
+                             f"kernels that launched (probe: {probe})")
     return entries
+
+
+def device_times(node, path=""):
+    """(path, value) of every ``device_ms`` in a kernels-line entry, nested
+    cases included."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            if k == "device_ms":
+                yield path, v
+            else:
+                yield from device_times(v, f"{path}/{node.get('name', node.get('case', k))}")
+    elif isinstance(node, list):
+        for v in node:
+            yield from device_times(v, path)
 
 
 # the l models of the paper's V9-V12 results (e2e_families)
@@ -3700,12 +4347,13 @@ def main() -> int:
                     help="only take the card-vs-CPU reference readings of yolov8l and the "
                          "families on N seeds, sound and with a fault (reference_spread, "
                          "train_spread), and print no result")
-    ap.add_argument("--only", choices=["e2e_train", "e2e_dp", "e2e_clusters"], default="",
+    ap.add_argument("--only", choices=["e2e_train", "e2e_dp", "e2e_clusters", "e2e_sp"],
+                    default="",
                     help="run this phase alone (after env and build, on a detector of its "
                          "own; e2e_dp with e2e_serve's checkpoint and datasets written "
                          "first, e2e_clusters on e2e_sweeps' scenes), print its kernel "
                          "entries (e2e_train) and no result; with --reference-seeds, take "
-                         "only that phase's readings (train_spread, dp_spread)")
+                         "only that phase's readings (train_spread, dp_spread, sp_spread)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one CUDA card",
@@ -3722,6 +4370,9 @@ def main() -> int:
          nvcc_flags=" ".join(_build.NVCC_FLAGS))
     if args.reference_seeds and args.only == "e2e_dp":
         dp_spread(torch, args.reference_seeds)
+        return 0
+    if args.reference_seeds and args.only == "e2e_sp":
+        sp_spread(torch, args.reference_seeds)
         return 0
     if args.reference_seeds:
         if not args.only:
@@ -3742,6 +4393,20 @@ def main() -> int:
         ind = label_batches(det, make_scenes(rng, SWEEP_BATCHES))
         ood = label_batches(det, make_scenes(rng, 1), unknown_every=3)
         phase_e2e_clusters(torch, det, ind, ood)
+        emit("done", seconds=time.perf_counter() - t_start)
+        return 0
+    if args.only == "e2e_sp":
+        from ood_in_object_detection_torch.engine import Detector
+        from ood_in_object_detection_torch.scripts import bench_k3 as BK3
+
+        emit("profile_coverage", at="start", **BK3.profile_coverage())
+        batches = make_batches(np.random.default_rng(SEED), 3)  # e2e's: the same run
+        images = batches[2]
+        det = family_detector(torch, MODEL, batches)
+        det16 = Detector.create(MODEL, nc=NC, img_size=IMG, device=DEVICE, dtype=torch.bfloat16,
+                                state_dict=det.model.state_dict())
+        phase_e2e_sp(torch, det, det16, images, env)
+        emit("profile_coverage", at="end", **BK3.profile_coverage())
         emit("done", seconds=time.perf_counter() - t_start)
         return 0
     if args.only == "e2e_dp":
@@ -3771,6 +4436,7 @@ def main() -> int:
         launches_bundle = phase_e2e_bundle(torch, det, det16, Path(serve_root), env)
         launches_dp = phase_e2e_dp(torch, det, ind, ood, Path(serve_root), env)
     images = ood[0]["images"]
+    launches_sp, sp_slab = phase_e2e_sp(torch, det, det16, images, env)
     phase_reference(torch, det, images)
     phase_profile(torch, det, images, step_ms)
     phase_profile(torch, det16, images, step16_ms, label="profile_bf16")
@@ -3778,8 +4444,9 @@ def main() -> int:
         entries = phase_kernels(torch, det, det16, methods["Cosine_cl_stride"], images,
                                 _added(launches, launches16, launches_eul, launches_sweeps,
                                        launches_clusters, launches_serve, launches_bundle,
-                                       launches_dp), eul_parts,
+                                       launches_dp, launches_sp), eul_parts,
                                 cluster_banks)
+    entries[-1]["sp_slab"] = sp_slab  # K4's entry: on sp 2's halo slab (e2e_sp)
     entries.append(sdr_entry)
     entries += phase_e2e_families(torch)
     entries += phase_xscale_stem(torch, images)

@@ -50,16 +50,30 @@ def normalise_images(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def model_maps(model: torch.nn.Module, x: torch.Tensor):
+    """(B, H, W, 3) float images in [0, 1] -> (raw maps, neck maps), NCHW:
+    the model part of the predict step."""
+    # yolov10's raw maps are its one2one maps (a model in training
+    # returns one2many third, as the JAX model_forward reads out[0] and
+    # out[1], yolo.py:617); every family runs NMS
+    return model(x.to(torch.float32).permute(0, 3, 1, 2).contiguous())[:2]
+
+
 def predict_step(model: torch.nn.Module, x: torch.Tensor, conf_thres, iou_thres: float,
                  max_det: int, pre_nms_k: int, img_size: int, roi_samples: int) -> PredictOutput:
     """(B, H, W, 3) float images in [0, 1] -> PredictOutput: the body of
     ``Detector.predict`` and of the exported :class:`PredictStep`."""
-    # yolov10's raw maps are its one2one maps (a model in training
-    # returns one2many third, as the JAX model_forward reads out[0] and
-    # out[1], yolo.py:617); every family runs NMS
-    raw, neck = model(x.to(torch.float32).permute(0, 3, 1, 2).contiguous())[:2]
-    ct = torch.as_tensor(conf_thres, dtype=torch.float32, device=x.device)
-    det, logits = fused_detect(raw, model.nc, ct, iou_thres=iou_thres,
+    raw, neck = model_maps(model, x)
+    return detect_and_tap(raw, neck, model.nc, conf_thres, iou_thres, max_det, pre_nms_k,
+                          img_size, roi_samples)
+
+
+def detect_and_tap(raw, neck, nc: int, conf_thres, iou_thres: float, max_det: int,
+                   pre_nms_k: int, img_size: int, roi_samples: int) -> PredictOutput:
+    """The post-model part of the predict step on whole maps: lazy decode,
+    top-k and NMS (K1), the RoI and exact-position taps (K2), the clip."""
+    ct = torch.as_tensor(conf_thres, dtype=torch.float32, device=raw[0].device)
+    det, logits = fused_detect(raw, nc, ct, iou_thres=iou_thres,
                                max_det=max_det, pre_nms_k=pre_nms_k)
     # level from the flat anchor index against the level boundaries
     b0 = raw[0].shape[2] * raw[0].shape[3]
@@ -105,6 +119,10 @@ class Detector:
     roi_samples: int = 0
     # predict_sharded's replicas: (mesh, weights key, {device: model})
     _replicas: Any = dataclasses.field(default=None, repr=False, compare=False)
+    # predict_sharded's last sp run: per batch shard, its shards' ShardStats
+    last_sp_stats: Any = dataclasses.field(default=None, repr=False, compare=False)
+    # predict_sharded's sp threads (parallel/spatial.py:Workers), made on first use
+    _sp_workers: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def create(cls, name: str, nc: int = 80, img_size: int = 640, device="cuda",
@@ -157,16 +175,19 @@ class Detector:
                             self.img_size, self.roi_samples)
 
     def _replicas_for(self, mesh) -> dict:
-        """{device: model} for ``devices``: the model itself on its own
-        device, elsewhere a copy made once per mesh and weights (the JAX
-        package's replicated weights, engine.py:195-203). The cache holds
-        one entry, keyed by the mesh (identity) and every parameter's and
-        buffer's storage and version counter, so loading or calibrating
+        """{device: model} for every device the mesh's work runs on (each
+        batch shard's ``sp`` entries at ``model`` index 0): the model itself
+        on its own device, elsewhere a copy made once per mesh and weights
+        (the JAX package's replicated weights, engine.py:195-203). The cache
+        holds one entry, keyed by the mesh (identity) and every parameter's
+        and buffer's storage and version counter, so loading or calibrating
         weights in place evicts it. A mesh of the model's own device alone
         needs no copy and no key (the key costs ~2 ms of host time at
-        yolov8l)."""
+        yolov8l). The shards of an ``sp`` group on one device share its
+        replica (an eval forward writes nothing to the model)."""
         own = self.device
-        if all(d == own for d in mesh.batch_devices):
+        used = [d for g in mesh.sp_groups for d in g]
+        if all(d == own for d in used):
             return {own: self.model}
         key = tuple((t.data_ptr(), t._version)
                     for t in itertools.chain(self.model.parameters(), self.model.buffers()))
@@ -175,7 +196,7 @@ class Detector:
             return cached[2]
         reps = {}
         with torch.no_grad():
-            for d in mesh.batch_devices:
+            for d in used:
                 if d not in reps:
                     reps[d] = self.model if d == own else copy.deepcopy(self.model).to(d).eval()
         self._replicas = (mesh, key, reps)
@@ -184,32 +205,78 @@ class Detector:
     @torch.no_grad()
     def predict_sharded(self, images, mesh, conf_thres=0.25, iou_thres: float = 0.7,
                         max_det: int = 300, pre_nms_k: int = 1024) -> PredictOutput:
-        """Data-parallel predict over a mesh (parallel/mesh.py) from one
-        process: the batch splits into the mesh's ("dcn", "data") shards,
-        equal and contiguous, in order; each shard runs the unchanged
-        predict step on its device's replica of the model (K4, K1, K2 launch
-        there), and the outputs are gathered onto the mesh's first device in
-        batch order. A batch that does not divide over the shards raises
-        ValueError, as the JAX package's device_put does; an ``sp`` or
-        ``model`` axis raises NotImplementedError (ROADMAP.md A12b)."""
-        from .parallel.mesh import batch_sharding, require_dp
+        """Predict over a ("dcn", "data", "sp", "model") mesh
+        (parallel/mesh.py) from one process: the batch splits into the
+        mesh's ("dcn", "data") shards, equal and contiguous, in order, and
+        the outputs are gathered onto the mesh's first device in batch
+        order. A batch that does not divide over the shards raises
+        ValueError, as the JAX package's device_put does.
 
-        require_dp(mesh, "predict_sharded")
+        - ``sp`` 1: each shard runs the unchanged predict step on its
+          device's replica of the model (K4, K1, K2 launch there).
+        - ``sp`` above 1: each shard's image height splits into equal slabs
+          over its ``sp`` entries (parallel/spatial.py: a whole number of
+          rows at the model's largest stride, else ValueError naming the
+          heights). One thread a slab runs the model forward on its rows,
+          K4 on its slab, the layers exchanging their halos by hand; the
+          raw and neck maps are gathered onto the shard's first ``sp`` entry,
+          which runs the post-model part (K1, K2, the clip) once.
+        - ``model``: splits no work, as the JAX predict replicates the
+          weights over the whole mesh: each (batch shard, ``sp``) position
+          runs on its ``model``-index-0 entry.
+
+        With ``sp`` above 1, ``self.last_sp_stats`` holds each group's
+        per-shard exchange counts, halo rows and bytes and barrier waits
+        (parallel/spatial.py:ShardStats)."""
+        from .models.head import STRIDES
+        from .parallel import spatial
+        from .parallel.mesh import batch_sharding
+
         sharding = batch_sharding(mesh)
         x = torch.as_tensor(images)
         rows = sharding.slices(x.shape[0])
+        groups = mesh.sp_groups
         reps = self._replicas_for(mesh)
+        if len(groups[0]) == 1:
+            outs = []
+            for sl, dev in zip(rows, sharding.devices):
+                with (torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()):
+                    xs = normalise_images(x[sl].to(dev))
+                    outs.append(predict_step(reps[dev], xs, conf_thres, iou_thres, max_det,
+                                             pre_nms_k, self.img_size, self.roi_samples))
+            return _gather(outs, sharding.devices[0])
+        spans = spatial.row_spans(x.shape[1], len(groups[0]), max(STRIDES))
+        overlaps = [0] + [spatial.STEM_OVERLAP] * (len(spans) - 1)
+
+        def forward(slab):
+            xs = normalise_images(slab.to(spatial.current().device))
+            return model_maps(reps[spatial.current().device], xs)
+
+        jobs = [(spatial.SpGroup(g), forward,
+                 [x[sl, lo - ov:hi] for (lo, hi), ov in zip(spans, overlaps)], overlaps)
+                for sl, g in zip(rows, groups)]
+        if self._sp_workers is None:
+            self._sp_workers = spatial.Workers()
+        results = spatial.run(jobs, workers=self._sp_workers)
+        self.last_sp_stats = [job[0].stats for job in jobs]
         outs = []
-        for sl, dev in zip(rows, sharding.devices):
+        for g, parts in zip(groups, results):
+            dev = g[0]
             with (torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()):
-                xs = normalise_images(x[sl].to(dev))
-                outs.append(predict_step(reps[dev], xs, conf_thres, iou_thres, max_det,
-                                         pre_nms_k, self.img_size, self.roi_samples))
+                raw, neck = (_gather_rows([p[i] for p in parts], dev) for i in range(2))
+                outs.append(detect_and_tap(raw, neck, self.nc, conf_thres, iou_thres, max_det,
+                                           pre_nms_k, self.img_size, self.roi_samples))
         return _gather(outs, sharding.devices[0])
 
     def neck_channels(self) -> Tuple[int, ...]:
         """Per-level neck channel counts (to slice roi_feats padding)."""
         return tuple(self.model.neck_channels)
+
+
+def _gather_rows(parts, device):
+    """The ``sp`` shards' lists of NCHW maps, in height order, each map's
+    rows concatenated on ``device``."""
+    return [torch.cat([p[i].to(device) for p in parts], dim=2) for i in range(len(parts[0]))]
 
 
 def _gather(parts, device):

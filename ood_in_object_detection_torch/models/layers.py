@@ -22,6 +22,15 @@ In training, BatchNorm is flax's (:func:`bn_train`), not nn.BatchNorm2d's:
 batch statistics with the biased variance, the running statistics updated
 with that biased variance, and the update held back until the trainer
 commits it (:func:`commit_batch_stats`).
+
+Under spatial parallelism (parallel/spatial.py: an ``sp`` shard's thread
+holds a slab of the map's rows) every op that reads across rows takes its
+rule here: a conv or pool taller or longer-strided than 1 runs on the
+window of rows its outputs read, the neighbours' halo rows included and the
+image edge padded as the op pads it (zeros for a conv, -inf for a max-pool,
+none for the VALID 2x2 average pool), with height padding 0; the resizes
+stay local, their rows aligned; an attention block runs on the gathered
+map and keeps the shard's rows. Every other op is row-local.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.stem import silu
+from ..parallel import spatial
 from ..parallel.distributed import active_group, all_reduce_sum_autograd
 
 BN_EPS = 1e-3
@@ -40,8 +50,16 @@ BN_DECAY = 0.97  # flax's momentum: running = 0.97 * running + (1 - 0.97) * batc
 
 def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv`` on ``x`` in x's dtype, its f32 weight (and bias) cast to it;
-    the bias is added after the conv's result is rounded, as flax does."""
-    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding,
+    the bias is added after the conv's result is rounded, as flax does. On
+    an ``sp`` shard a kernel or stride taller than 1 runs on its window of
+    rows (:meth:`parallel.spatial.Shard.window`, zeros past the image)."""
+    padding = conv.padding
+    (kh, kw), (sh, _) = conv.kernel_size, conv.stride
+    shard = spatial.current()
+    if shard is not None and (kh > 1 or sh > 1):
+        x = shard.window(x, kh, sh, padding[0], 0.0)
+        padding = (0, padding[1])
+    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, padding,
                  conv.dilation, conv.groups)
     return y if conv.bias is None else y + conv.bias.to(x.dtype)[:, None, None]
 
@@ -127,7 +145,7 @@ class Conv(nn.Module):
         if self.bn.training and self.bn.momentum is not None:
             x = bn_train(self.bn, conv_in_dtype(self.conv, x))
         elif x.dtype == torch.float32:
-            x = self.bn(self.conv(x))
+            x = self.bn(conv_in_dtype(self.conv, x))
         else:
             x = bn_inference(self.bn, conv_in_dtype(self.conv, x))
         return silu(x) if self.act else x
@@ -174,12 +192,12 @@ class SPPF(nn.Module):
         c_ = c1 // 2
         self.cv1 = Conv(c1, c_, 1, 1)
         self.cv2 = Conv(c_ * 4, c2, 1, 1)
-        self.m = nn.MaxPool2d(kernel_size=k, stride=1, padding=k // 2)
+        self.k = k
 
     def forward(self, x):
         ys = [self.cv1(x)]
         for _ in range(3):
-            ys.append(self.m(ys[-1]))
+            ys.append(max_pool(ys[-1], self.k))
         return self.cv2(torch.cat(ys, dim=1))
 
 
@@ -199,14 +217,22 @@ class Concat(nn.Module):
 
 
 def max_pool(x: torch.Tensor, k: int, s: int = 1) -> torch.Tensor:
-    """Max-pool with padding k // 2 filled with -inf (flax max_pool)."""
+    """Max-pool with padding k // 2 filled with -inf (flax max_pool); on an
+    ``sp`` shard, over its window of rows (-inf past the image)."""
+    shard = spatial.current()
+    if shard is not None:
+        return F.max_pool2d(shard.window(x, k, s, k // 2, float("-inf")), k, s, (0, k // 2))
     return F.max_pool2d(x, k, s, k // 2)
 
 
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """flax ``avg_pool(x, (2, 2), strides=(1, 1), padding='VALID')``, rounded
     as XLA sums the window: row-major, each add in x's dtype (in bf16 each
-    partial sum rounds to bf16); the /4 is exact."""
+    partial sum rounds to bf16); the /4 is exact. A map of H rows gives H -
+    1; on an ``sp`` shard each shard but the last takes one row below."""
+    shard = spatial.current()
+    if shard is not None:
+        x = shard.window(x, 2, 1, 0, None)
     a, b = x[..., :-1, :-1], x[..., :-1, 1:]
     c, d = x[..., 1:, :-1], x[..., 1:, 1:]
     return (((a + b) + c) + d) / 4
@@ -287,6 +313,9 @@ class Attention(nn.Module):
         self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
 
     def forward(self, x):
+        shard = spatial.current()
+        if shard is not None:  # attention reads every row
+            return shard.on_whole_map(self.forward, x)
         b, c, h, w = x.shape
         qkv = map_to_tokens(self.qkv(x)).reshape(b, h * w, self.num_heads, -1)
         q, k, v = (t.transpose(1, 2) for t in
@@ -361,6 +390,9 @@ class AAttn(nn.Module):
         self.pe = Conv(dim, dim, 7, 1, g=dim, act=False)
 
     def forward(self, x):
+        shard = spatial.current()
+        if shard is not None:  # area attention reads every row
+            return shard.on_whole_map(self.forward, x)
         b, c, h, w = x.shape
         n = h * w
         qkv = map_to_tokens(self.qkv(x)).reshape(
@@ -608,6 +640,22 @@ class CBFuse(nn.Module):
 
     def forward(self, xs):
         acc = xs[-1]
+        shard = spatial.current()
         for i, src in zip(self.idx, xs[:-1]):
+            if shard is not None:
+                check_aligned(shard, src[i], acc)
             acc = acc + F.interpolate(src[i], size=acc.shape[2:], mode="nearest")
         return acc
+
+
+def check_aligned(shard, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """A nearest resize of ``src`` to ``dst``'s rows stays local on ``sp``
+    shards only where every shard's rows of ``dst`` are its rows of ``src``
+    times one integer factor; raise NotImplementedError (ROADMAP.md A12c)
+    otherwise."""
+    (s0, sh), (d0, dh) = shard.layout(src), shard.layout(dst)
+    m = sum(dh) // max(1, sum(sh))
+    if sum(dh) != m * sum(sh) or any(d != m * s for d, s in zip(d0 + dh, s0 + sh)):
+        raise NotImplementedError(
+            f"a nearest resize of rows {sh} to {dh} over sp shards is not row-local "
+            "(ROADMAP.md A12c)")

@@ -13,7 +13,9 @@ At inference the first two k3/s2 Conv blocks run as one fused stem
 parameters, as the JAX model runs its phase-folded stem (yolo.py:398-431),
 wherever the spec allows it, as the JAX model's gate does
 (:attr:`YOLODetector.stem_route`); ``folded_stem=False``, and every
-training-mode forward, keep the two Conv modules.
+training-mode forward, keep the two Conv modules. On a shard of an ``sp``
+group (parallel/spatial.py) the forward runs unchanged on a slab of the
+image's rows, K4 included, and the layers exchange their halos.
 
 Training runs in f32 or in bf16 (f32 parameters, bf16 compute, as the JAX
 package's ``--dtype bfloat16``), with flax's BatchNorm (models/layers.py:
@@ -33,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.stem import fused_stem
+from ..parallel import spatial
 from . import layers as L
 from .head import Detect
 
@@ -487,10 +490,20 @@ class YOLODetector(nn.Module):
         x = x.to(self.compute_dtype)  # after normalisation, as yolo.py:416
         ys: List = []
         start = 0
+        # an sp shard (parallel/spatial.py) may hold ``overlap`` image rows
+        # above its own: the fused stem (K4 on the slab) reads them and its
+        # first output row, spoiled by the kernel's zero padding, is dropped;
+        # the Conv route drops them and exchanges halos instead
+        shard = spatial.current()
+        overlap = shard.overlap if shard is not None else 0
         if self._can_fold_stem(x):
             x = fused_stem(x, self.model[0], self.model[1], self.compute_dtype)
+            if overlap:
+                x = x[:, :, overlap // 4:]
             ys.extend([x, x])  # ys[0] is never read (checked by _spec_folds_stem)
             start = 2
+        elif overlap:
+            x = x[:, :, overlap:]
         remat = self.remat and self.training and torch.is_grad_enabled()
 
         def run(m, inp):

@@ -152,8 +152,7 @@ def min_group_distances(feats: torch.Tensor, centroids: torch.Tensor,
         feats.data_ptr(), centroids.data_ptr(), kmask.data_ptr(), n, g, k, d,
         int(metric != "cosine"), int(plan.wide), plan.gr, out.data_ptr(),
         _build.stream_handle(dev))
-    min_group_distances.launches += 1
-    min_group_distances.launches_by_device[dev.index] += 1
+    _build.count_launch(min_group_distances, device=dev.index)
     _build.check_launch("min_group_distance", code)
     return out
 

@@ -45,6 +45,7 @@ KERNELS = {
 _LIBS: dict = {}
 _BUILDS: list = []
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -131,6 +132,17 @@ def stream_handle(device) -> int:
 
     index = torch.cuda.current_device() if device.index is None else device.index
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def count_launch(wrapper, attr: str = "launches", device=None) -> None:
+    """Add one to a kernel wrapper's launch counter ``wrapper.<attr>`` and,
+    given a card index, to ``wrapper.<attr>_by_device[device]``, under a
+    lock: the shards of an ``sp`` group launch from several threads
+    (parallel/spatial.py), and ``+=`` on an attribute is no atomic step."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+        if device is not None:
+            getattr(wrapper, attr + "_by_device")[device] += 1
 
 
 def require_cuda(name: str, **tensors) -> None:

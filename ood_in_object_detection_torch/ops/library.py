@@ -74,8 +74,7 @@ def nms_keep_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float) ->
     code = _build.launcher("nms_keep")(
         boxes.data_ptr(), valid.data_ptr(), float(iou_thres), b, k,
         mask.data_ptr(), keep.data_ptr(), _build.stream_handle(boxes.device))
-    greedy_keep.launches += 1
-    greedy_keep.launches_by_device[boxes.device.index] += 1
+    _build.count_launch(greedy_keep, device=boxes.device.index)
     _build.check_launch("nms_keep", code)
     return keep
 
@@ -101,12 +100,8 @@ def roi_contract_cuda(fmap: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) ->
     code = _build.launcher("roi_contract")(
         fmap.data_ptr(), wx.data_ptr(), wy.data_ptr(), b, h, w, c, n2, int(bf16), int(vec),
         out.data_ptr(), _build.stream_handle(fmap.device))
-    if bf16:
-        roi_contract.launches_bf16 += 1
-        roi_contract.launches_bf16_by_device[fmap.device.index] += 1
-    else:
-        roi_contract.launches += 1
-        roi_contract.launches_by_device[fmap.device.index] += 1
+    _build.count_launch(roi_contract, "launches_bf16" if bf16 else "launches",
+                        fmap.device.index)
     _build.check_launch("roi_contract", code)
     return out
 

@@ -293,8 +293,7 @@ def fused_stem_launch(x: torch.Tensor, operands, c1: int, c2: int,
         x.data_ptr(), w1k.data_ptr(), b1.data_ptr(), w2k.data_ptr(), b2.data_ptr(),
         b, h, w, c1, c2, int(dtype == torch.bfloat16), out.data_ptr(),
         _build.stream_handle(x.device))
-    fused_stem.launches += 1
-    fused_stem.launches_by_device[x.device.index] += 1
+    _build.count_launch(fused_stem, device=x.device.index)
     _build.check_launch("fused_stem", code)
     return out
 

@@ -268,7 +268,7 @@ def window_copy(z: torch.Tensor, row0: int = 2, cout: int = COUT) -> torch.Tenso
     code = _build.launcher("stem_parts_copy")(
         z.data_ptr(), out.data_ptr(), b, hin, wp, cin, row0, hin - row0, cout,
         _build.stream_handle(z.device))
-    window_copy.launches += 1
+    _build.count_launch(window_copy)
     _build.check_launch("stem_parts_copy", code)
     return out
 
@@ -297,7 +297,7 @@ def shift_add(z: torch.Tensor, shift: int) -> torch.Tensor:
     out = torch.empty((n, r - 2, w, COUT), dtype=z.dtype, device=z.device)
     code = _build.launcher("stem_parts_shift")(
         z.data_ptr(), out.data_ptr(), n, r, w, c, shift, COUT, _build.stream_handle(z.device))
-    shift_add.launches += 1
+    _build.count_launch(shift_add)
     _build.check_launch("stem_parts_shift", code)
     return out
 
@@ -344,7 +344,7 @@ def stem_gemm(z: torch.Tensor, weights: Dict[str, torch.Tensor], mode: str) -> t
         z.data_ptr(), b1.data_ptr(), 0 if b2 is None else b2.data_ptr(),
         GEMM_MODES.index(mode), b, hin, w, GEMM_ROWS_PER_ITEM, out.data_ptr(),
         _build.stream_handle(z.device))
-    stem_gemm.launches += 1
+    _build.count_launch(stem_gemm)
     _build.check_launch("stem_parts_mm", code)
     return out
 

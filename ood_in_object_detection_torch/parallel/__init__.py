@@ -1,6 +1,7 @@
-"""Data parallelism over several devices (port of
+"""Parallelism over several devices (port of
 ood_in_object_detection_tpu/parallel): meshes and batch sharding
-(``mesh.py``) and the process group of a data-parallel training run
+(``mesh.py``), the ``sp`` group that splits an image's height at inference
+(``spatial.py``) and the process group of a data-parallel training run
 (``distributed.py``)."""
 
 from .mesh import (  # noqa: F401

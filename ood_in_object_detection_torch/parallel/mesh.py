@@ -11,16 +11,22 @@ one card or the CPU can hold the data-parallel path.
 - Inference is one process driving every entry
   (``engine.Detector.predict_sharded``): a replica of the model on each
   device, each shard through the unchanged predict step on its device, the
-  outputs gathered onto the mesh's first device.
+  outputs gathered onto the mesh's first device. An ``sp`` axis above 1
+  splits each batch shard's image height over its ``sp`` entries
+  (:attr:`Mesh.sp_groups`; ``parallel/spatial.py`` exchanges the halos).
+  The ``model`` axis splits no work at inference, as in the JAX package's
+  predict, whose weights are replicated over the whole mesh: each (batch
+  shard, ``sp``) position runs on its ``model``-index-0 entry.
 - Training is one process per entry under ``torch.distributed``
   (``parallel/distributed.py``, ``train/trainer.py:make_sharded_train_step``):
   BatchNorm's statistics, the loss normalizer and the gradient are those of
   the global batch, as in the JAX package's one logical computation.
 
-The ``sp`` axis (image height split across devices, conv halos) and the
-``model`` axis (conv output channels split across devices) are ROADMAP.md
-A12b: a mesh with either larger than 1 builds, and every use of it raises
-NotImplementedError. :func:`param_spec`, a pure function, is ported.
+Training over ``sp`` (halos whose gradient returns to the neighbour) and
+over ``model`` (conv output channels split across devices) is ROADMAP.md
+A12c: its uses (:func:`device_put_batch`, :func:`prefetch_to_device`,
+``shard_state``, ``make_sharded_train_step``) raise NotImplementedError on
+such a mesh. :func:`param_spec`, a pure function, is ported.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ import torch
 
 AXES = ("dcn", "data", "sp", "model")
 BATCH_AXES = ("dcn", "data")
-A12B = "ROADMAP.md A12b"
+A12C = "ROADMAP.md A12c"
 
 
 def as_device(entry) -> torch.device:
@@ -75,23 +81,30 @@ class Mesh:
         return collections.OrderedDict(zip(AXES, self.devices.shape))
 
     @property
+    def sp_groups(self) -> List[List[torch.device]]:
+        """Per batch shard, in batch order (the ("dcn", "data") entries,
+        dcn-major), its ``sp`` entries in height order, at ``model`` index
+        0."""
+        d = self.devices[..., 0]
+        return [list(g) for g in d.reshape(-1, d.shape[-1])]
+
+    @property
     def batch_devices(self) -> List[torch.device]:
-        """One device per batch shard, in batch order: the ("dcn", "data")
-        entries, dcn-major."""
-        require_dp(self, "batch sharding")
-        return list(self.devices.reshape(-1))
+        """One device per batch shard, in batch order: its first ``sp``
+        entry at ``model`` index 0, where its outputs land."""
+        return [g[0] for g in self.sp_groups]
 
     def __repr__(self) -> str:
         return f"Mesh({dict(self.shape)}, {[str(d) for d in self.devices.reshape(-1)]})"
 
 
 def require_dp(mesh: Mesh, what: str) -> None:
-    """Raise NotImplementedError naming A12b unless the mesh's ``sp`` and
-    ``model`` axes are 1 (data parallelism only)."""
+    """Raise NotImplementedError naming A12c unless the mesh's ``sp`` and
+    ``model`` axes are 1: training's uses of a mesh are data-parallel only."""
     if mesh.shape["sp"] > 1 or mesh.shape["model"] > 1:
         raise NotImplementedError(
             f"{what} on a mesh with sp={mesh.shape['sp']}, model={mesh.shape['model']}: "
-            f"spatial and tensor parallelism are not ported ({A12B})")
+            f"spatial and tensor parallelism in training are not ported ({A12C})")
 
 
 def visible_cards() -> List[torch.device]:

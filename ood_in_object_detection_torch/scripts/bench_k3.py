@@ -13,7 +13,9 @@ classes x 3 strides), unit rows, cosine and l2:
   shared memory a block has).
 
 Each case prints one JSON line: the wrapper's time (``ms``, CUDA events,
-host included), its device time (``device_ms``, torch.profiler), the least
+host included), its device time (``device_ms``: CUDA events around the
+calls queued behind a spinning kernel, so that they run back to back,
+where torch.profiler may drop records), the least
 time the card could take (``bound_ms``), the plain version's time and the
 kernel's largest error against it, and, as an observation, cuBLAS's f32
 ``x @ C.T`` (TF32 off) followed by the masked minimum over K
@@ -30,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -55,7 +58,9 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 def device_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn``, all its kernels (torch.profiler)."""
+    """Device milliseconds per call of ``fn``, all its kernels (torch.profiler).
+    The profiler may drop device records late in a long process (see
+    :func:`profile_coverage`): :func:`queued_ms` does not depend on it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -67,6 +72,76 @@ def device_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / reps / 1e3
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn`` by CUDA events, the calls
+    queued behind a spinning kernel (~10 ms at first), so that they run
+    back to back whatever the host's pace: the time between an event
+    recorded after the spin and one after the last call, over ``reps``.
+    ``fn`` must not synchronize with the host. The spin is lengthened until
+    it outlasts the host's enqueueing."""
+    fn()
+    torch.cuda.synchronize()
+    spin_cycles = 20_000_000
+    for _ in range(4):
+        spin0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spin0.record()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if spin0.elapsed_time(start) > enqueue_ms:
+            return start.elapsed_time(end) / reps
+        spin_cycles *= 4
+    raise RuntimeError(f"queued_ms: the host took {enqueue_ms:.3f} ms to enqueue {reps} calls, "
+                       "longer than the spin")
+
+
+def profile_coverage() -> dict:
+    """How many device records a profile keeps: one elementwise kernel
+    profiled with the host's events (``mul_kernels``: records of its
+    kernel, 1 expected; ``kernel_after_op_us``: its record's start against
+    its host op's), then 20 calls of K3 on seeded inputs (case ``k5_cosine``)
+    with their records counted against the calls (``records``), their
+    device ms per call by the profiler and by :func:`queued_ms`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.ones(1 << 20, device="cuda")
+    x.mul(2.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        x.mul(2.0)
+        torch.cuda.synchronize()
+    events = prof.events()
+    op = [e for e in events if e.name == "aten::mul"]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    out = dict(mul_kernels=len(kernels),
+               kernel_after_op_us=(kernels[0].time_range.start - op[0].time_range.start)
+               if op and kernels else None)
+    feats, cents, kmask, metric = k3_cases(torch.device("cuda"), metrics=("cosine",))["k5_cosine"]
+
+    def fn():
+        return D.min_group_distances(feats, cents, kmask, metric)
+
+    reps = 20
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "min_group" in e.name]
+    out.update(calls=reps, records=len(seen),
+               profiled_ms=sum(e.device_time_total for e in seen) / reps / 1e3,
+               queued_ms=queued_ms(fn, reps))
+    return out
 
 
 def bank(rng, g: int, k: int, d: int, masked: float, empty_every: int, device, metric: str):
@@ -144,7 +219,7 @@ def measure(feats, cents, kmask, metric, reps: int) -> dict:
                 metric=metric, valid_centroids=int(kmask.sum()),
                 empty_groups=int((~kmask.any(1)).sum()), max_abs_err=err, agrees=ok,
                 ms=cuda_ms(lambda: D.min_group_distances(feats, cents, kmask, metric), reps),
-                device_ms=device_ms(lambda: D.min_group_distances(feats, cents, kmask, metric),
+                device_ms=queued_ms(lambda: D.min_group_distances(feats, cents, kmask, metric),
                                     reps),
                 plain_ms=cuda_ms(lambda: D.min_group_distances_plain(feats, cents, kmask, metric),
                                  max(3, reps // 5)),

@@ -19,8 +19,9 @@ steps on the device:
 Every step runs at one batch size, so the kernels see one set of shapes.
 One process drives one card, or a mesh (parallel/mesh.py) through
 ``Detector.predict_sharded`` (pass ``mesh=``: the batch splits over its
-devices, each runs its shard on its replica, the outputs and the decisions
-land on the mesh's first device). The collector thread serializes the
+("dcn", "data") shards and each image's height over an ``sp`` axis, each
+device runs its part on its replica, the outputs and the decisions land on
+the mesh's first device). The collector thread serializes the
 device work and runs it without autograd (grad mode is per thread in
 PyTorch).
 """
@@ -96,10 +97,12 @@ class MicroBatchServer:
 
     def __post_init__(self):
         if self.mesh is not None:
-            from .parallel.mesh import batch_sharding, require_dp
+            from .models.head import STRIDES
+            from .parallel.mesh import batch_sharding
+            from .parallel.spatial import row_spans
 
-            require_dp(self.mesh, "MicroBatchServer")
             batch_sharding(self.mesh).slices(self.batch_size)  # must divide
+            row_spans(self.detector.img_size, self.mesh.shape["sp"], max(STRIDES))  # must split
 
     @classmethod
     def from_bundle(cls, path, device=None, **kw) -> "MicroBatchServer":

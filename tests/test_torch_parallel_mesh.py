@@ -1,7 +1,8 @@
 """The port's mesh API (``parallel/mesh.py``) and process group
 (``parallel/distributed.py``) on the CPU: meshes of repeated 'cpu' entries
-stand for cards; the ``sp`` and ``model`` axes build and refuse every use
-(ROADMAP.md A12b); ``param_spec`` equals the JAX package's on every leaf of
+stand for cards; on the ``sp`` and ``model`` axes predict and the server
+run (parallel/spatial.py) and training's uses refuse (ROADMAP.md A12c);
+``param_spec`` equals the JAX package's on every leaf of
 yolov8n; spawned gloo ranks report failures and hangs by rank, each joined
 within 120 s at most."""
 
@@ -73,17 +74,24 @@ def tiny_detector():
 
 @pytest.mark.parametrize("axes", [dict(sp=2), dict(model=2)])
 def test_sp_and_model_axes_raise_a12b(axes, tiny_detector):
+    """The ``sp`` and ``model`` axes: the inference uses run (predict's
+    outputs those of the unsharded predict, the server builds); training's
+    four uses still raise NotImplementedError, now naming A12c."""
     mesh = make_mesh(devices=["cpu"] * 4, **axes)
-    images = np.zeros((4, 64, 64, 3), np.uint8)
+    images = np.random.default_rng(3).integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
     model = tiny_detector.model
-    uses = [lambda: tiny_detector.predict_sharded(images, mesh),
-            lambda: device_put_batch({"images": images}, mesh),
-            lambda: MicroBatchServer(tiny_detector, batch_size=4, mesh=mesh),
+    got = tiny_detector.predict_sharded(images, mesh, conf_thres=1e-6, pre_nms_k=128)
+    want = tiny_detector.predict(images, conf_thres=1e-6, pre_nms_k=128)
+    np.testing.assert_array_equal(got.det.valid.numpy(), want.det.valid.numpy())
+    np.testing.assert_allclose(got.det.boxes.numpy(), want.det.boxes.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    assert MicroBatchServer(tiny_detector, batch_size=4, mesh=mesh).mesh is mesh
+    uses = [lambda: device_put_batch({"images": images}, mesh),
             lambda: TTR.make_sharded_train_step(model, TTR.TrainConfig(), mesh),
             lambda: TTR.shard_state(None, mesh),
             lambda: next(prefetch_to_device([{}], mesh))]
     for use in uses:
-        with pytest.raises(NotImplementedError, match="A12b"):
+        with pytest.raises(NotImplementedError, match="A12c"):
             use()
 
 

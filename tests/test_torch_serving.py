@@ -205,12 +205,15 @@ def test_serving_submit_after_stop_raises(det):
 
 
 def test_serving_unported_paths_raise(det):
-    """A mesh's sp and model axes wait on A12b; a bundle never serves over
-    a mesh (the JAX ValueError, raised before the bundle is read)."""
+    """A mesh's sp axis serves (parallel/spatial.py), unless the detector's
+    image height does not split over it; a bundle never serves over a mesh
+    (the JAX ValueError, raised before the bundle is read)."""
     from ood_in_object_detection_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="A12b"):
-        MicroBatchServer(det, mesh=make_mesh(sp=2, devices=["cpu"] * 2))
+    mesh = make_mesh(sp=2, devices=["cpu"] * 2)
+    assert MicroBatchServer(det, mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="height of 64"):
+        MicroBatchServer(det, mesh=make_mesh(sp=4, devices=["cpu"] * 4))
     with pytest.raises(ValueError, match="mesh"):
         MicroBatchServer.from_bundle("bundle_dir", mesh=object())
 
