@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only e2e_dp         # the data-parallel phase alone
     python3 chip_smoke.py --only e2e_clusters   # MeanShift, GMM, BGMM through the CLI
     python3 chip_smoke.py --only e2e_sp         # the spatial-parallel phase alone
+    python3 chip_smoke.py --only e2e_sp_train   # sp and model axes in training alone
 
 Phases, each printing one JSON line (a failure anywhere raises, and the
 script exits non-zero without printing a result):
@@ -85,7 +86,8 @@ script exits non-zero without printing a result):
    the ivis methods class separation above PCA's, and the final loss
    against a CPU fit's from the same init on the same triplets.
    Then cli.benchmarks.run_benchmark's fusion_strategies (9 rows) and
-   best_methods (12 rows), cli.extract_activations with --model_path (e2e's
+   best_methods (12 rows) on the first SDR_SWEEP_IND_BATCHES InD batches,
+   cli.extract_activations with --model_path (e2e's
    weights as a checkpoint; its per-group counts equal the phase's own
    extraction) and embedding_plot._fit_transform in modes sdr and pca_sdr
    on its payload (the plot itself needs matplotlib, which the card's
@@ -137,8 +139,11 @@ script exits non-zero without printing a result):
    otherwise) on e2e_serve's checkpoint and datasets: MSP and
    Cosine_cl_stride rows equal to the runs without the flag. The batch-16 train step (yolov8l,
    seeded, tests/test_train.py's noise batch) on a process group of
-   ``device_count()`` ranks (NCCL) and, where one card exists, of two gloo
-   ranks on it (``--device 0,0``), spawned by parallel/distributed.py: the
+   ``device_count()`` ranks (NCCL) where more than one card exists (with
+   one, a world of one rank would run the single-device step; the two gloo
+   ranks of card 0 named twice run in e2e_sp_train's first spawn, world
+   ``data2``, against this phase's reference), spawned by
+   parallel/distributed.py: the
    first step's loss and update against the single-process step on the
    same global batch within DP_TRAIN_LIMITS, every rank's state equal
    (digest), then ms a step, each rank's peak memory and the gradient
@@ -167,6 +172,30 @@ script exits non-zero without printing a result):
    ms); one mesh over every card where more than one is visible, else a
    line that it was not run. ``python3 chip_smoke.py --only e2e_sp`` runs
    it alone (with bench_k3's profile_coverage at its start and end).
+9d. e2e_sp_train (spatial and tensor parallelism in training,
+   parallel/{mesh,distributed,spatial}.py, train/trainer.py): the batch-16
+   step of yolov8l at 640 px (nc 20, TF32 off, seeded, e2e_dp's noise
+   batch) on gloo worlds of card 0 named 2 or 4 times, one rank an entry
+   (SP_TRAIN_SPAWNS: e2e_dp's ``data`` 2, then ``sp`` 2, then ``model`` 2
+   on one spawned pair of ranks, ``data`` 2 x ``sp`` 2 on four; each rank
+   makes the batch),
+   each rank's part placed by device_put_batch (its rows, on ``sp`` its
+   slab of the height) and the state by shard_state (on ``model`` each
+   rank's slice of the split convs). The first step on rank 0, on the state
+   gather_state gathers, against e2e_dp's single-process step on the same
+   global batch within DP_TRAIN_LIMITS (loss terms, the update of every
+   trained tensor), a second gather's digest equal, the ranks of each
+   ``model`` index equal (digests); at ``sp`` 2 a step with remat from the
+   saved start (the recompute on the card's autograd thread runs under the
+   rank's shard), within the same limits; planted faults, each a step from
+   the saved start in the same world, at least TRAIN_FAULT_FACTOR x over
+   their limit (train_fault: ``no_halo_grad``, ``loss_gather_summed``
+   at ``sp`` 2, ``no_tp_input_reduce`` at ``model`` 2). One line a world:
+   step ms and images/s (CUDA events), halo and gather MB, exchanges and
+   wait seconds a step each way per rank, the gradient all-reduce's MB and
+   seconds, peak memory per rank, backend, the card's name and power limit.
+   No kernel launches in training. ``python3 chip_smoke.py --only
+   e2e_sp_train`` runs it alone (taking its own single-process step).
 10. reference: one image through the card (kernels) and through the CPU
    (plain PyTorch versions) with the same weights; maps, detections and
    taps must agree within REF_LIMITS, and each layer (the stem also
@@ -269,6 +298,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -903,6 +933,12 @@ def phase_e2e_sweeps(torch, det):
 CLUSTERS_RUN = ("MeanShift", "GMM", "BGMM")
 CLUSTERS_VIZ = "MeanShift"
 CLUSTERS_IND_BATCHES = {"MeanShift": 8, "GMM": 1, "BGMM": 1}
+# the mixtures' grid of n_components here: 2..3 in place of the CLI's
+# RANGE_OF_CLUSTERS 2..14, so the EM factorises 5 components a group, not
+# 104 (GMM + BGMM took 109.5-115.4 s of the script on the full grid, 39.0 s
+# on 2..5; cut to make room for e2e_sp_train). The fit, the bank and K3 on
+# it are checked as before.
+CLUSTERS_MIXTURE_RANGE = list(range(2, 4))
 
 
 def phase_e2e_clusters(torch, det, ind, ood):
@@ -936,6 +972,7 @@ def phase_e2e_clusters(torch, det, ind, ood):
     run_eval, generate, fit_labels = E.run_eval, M.DistanceOODMethod.generate_clusters, \
         M.fit_cluster_labels
     load_detector, visualize = E.load_detector, CUSTOM_HYP.clusters.VISUALIZE
+    grid = CUSTOM_HYP.clusters.RANGE_OF_CLUSTERS
     evals, fits, searches = [], [], []
 
     def recording_eval(args, detector, method, logger, mesh=None):
@@ -967,6 +1004,8 @@ def phase_e2e_clusters(torch, det, ind, ood):
                 record.clear()
             np.random.seed(SEED)
             n_ind = CLUSTERS_IND_BATCHES[cm]
+            CUSTOM_HYP.clusters.RANGE_OF_CLUSTERS = \
+                CLUSTERS_MIXTURE_RANGE if cm in ("GMM", "BGMM") else grid
             (row,) = E.main(["--ood_method", SWEEP_METHOD, "--cluster_method", cm,
                              "--ind_dataset", str(ind_yamls[n_ind]),
                              "--ood_datasets", str(ood_yaml),
@@ -991,6 +1030,7 @@ def phase_e2e_clusters(torch, det, ind, ood):
             pngs = sorted((C.RESULTS_PATH / "cluster_viz").glob(f"*_{cm}_*_scores.png"))
             per_method.append(dict(
                 cluster_method=cm, ind_batches=list(range(n_ind)), fit_host_s=fit_s,
+                grid=list(CUSTOM_HYP.clusters.RANGE_OF_CLUSTERS) if cm != "MeanShift" else None,
                 grid_searches=len(searches),
                 groups_fitted=len(sizes), groups_with_k_gt_1=sum(k > 1 for k in sizes),
                 centroids=sum(sizes), largest_k=int(bank.count.max()),
@@ -1020,6 +1060,7 @@ def phase_e2e_clusters(torch, det, ind, ood):
         E.run_eval, M.DistanceOODMethod.generate_clusters = run_eval, generate
         M.fit_cluster_labels, E.load_detector = fit_labels, load_detector
         CUSTOM_HYP.clusters.VISUALIZE = visualize
+        CUSTOM_HYP.clusters.RANGE_OF_CLUSTERS = grid
         C.RESULTS_PATH, C.STORAGE_PATH = paths
         tmp.cleanup()
     banks = cluster_banks_entry(torch, det, fitted, ood[0]["images"], names=CLUSTERS_RUN)
@@ -1050,6 +1091,10 @@ SDR_DIST_REL_LIMITS = {
     "L2Ivis": 2e-4,      # sound <= 4.7e-5 (l2 near 0 is a cancelled root), fault >= 5.9e-4
 }
 SDR_PROFILE_STEPS = 10
+# the InD batches of the two sweeps here (of e2e_sweeps' 8): they took 31.6
+# s on 8 on the H100 (PERF.md section 4), each grid point extracting every
+# batch anew
+SDR_SWEEP_IND_BATCHES = 4
 # the card's SDR fits held by quality (sdr_fit_quality) on each stride of
 # at least SDR_QUALITY_MIN_ROWS rows and two classes (the rest are read):
 # trustworthiness (SDR_TRUST_K neighbours) above SDR_TRUST_MIN and, for the
@@ -1358,7 +1403,7 @@ def phase_e2e_sdr(torch, det, ind, ood):
                 "--conf_thr_test", str(CONF), "--benchmark", sweep, "--name", "chip_smoke"])
             before, t0 = read_counters(), time.perf_counter()
             rows = B.run_benchmark(args, det, E.build_ood_method("MSP", device=det.device),
-                                   ind, log)
+                                   ind[:SDR_SWEEP_IND_BATCHES], log)
             torch.cuda.synchronize()
             sweeps[sweep] = dict(seconds=time.perf_counter() - t0, rows=len(rows),
                                  methods=sorted({r["Method"] for r in rows}),
@@ -1953,6 +1998,9 @@ DP_PREDICT_LIMITS = {"boxes_px": 1e-2, "conf": 1e-5, "taps_rel": 1e-4}
 # moves the loss by >= 4.0e-3 and the update by >= 1.05
 DP_TRAIN_LIMITS = {"loss_rel": 3e-4, "update_rel": 2e-2}
 DP_TRAIN_STEPS = 3  # timed steps after the compared one
+# a planted fault (train_fault) moves the loss or the update at least this
+# many times its limit
+TRAIN_FAULT_FACTOR = 10.0
 
 
 def read_device_counters() -> dict:
@@ -1973,80 +2021,276 @@ def state_digest(torch, state) -> str:
     return h.hexdigest()
 
 
-def dp_train_rank(rank: int, world: int, devices, batch, ref_path, model_name, seed=SEED,
-                  cudnn=True, timed=DP_TRAIN_STEPS, fault="") -> dict:
-    """One rank of e2e_dp's training run (parallel/distributed.py:spawn):
-    a ``model_name`` seeded with ``seed``, shard_state and
-    make_sharded_train_step over the mesh of ``devices``; one step on this
-    rank's rows of ``batch`` held against the single-process step saved at
-    ``ref_path`` (rank 0), then ``timed`` timed steps (CUDA events on a
-    card), the gradient all-reduce's seconds, this rank's peak memory and
-    its state's digest. ``cudnn`` False runs PyTorch's own convolutions
-    (the same for any batch size); ``fault`` 'local_bn' takes each rank's
-    BatchNorm statistics over its own rows (the fault the global batch's
-    statistics exist to avoid)."""
-    import torch
+class TrainWorld(NamedTuple):
+    """A training world of train_rank (e2e_dp's NCCL ranks, dp_spread,
+    e2e_sp_train): the mesh of the spawned ranks' devices shaped by
+    ``axes`` (empty: ``data`` over every entry), the batch-16 step of MODEL
+    seeded with ``seed`` held to the single-process step saved at ``ref``
+    (dp_single_ref with the same ``seed`` and ``cudnn``; ``cudnn`` False
+    runs PyTorch's own convolutions, the same for any batch size). After
+    the checked step, each from the saved start: a step with remat
+    (``remat``) and one under each planted fault of ``faults``
+    (train_fault); then ``timed`` timed steps."""
+    key: str
+    axes: dict
+    ref: str
+    timed: int = 0
+    remat: bool = False
+    faults: tuple = ()
+    seed: int = SEED
+    cudnn: bool = True
 
-    from ood_in_object_detection_torch.models import build_model, init_weights
+
+@contextlib.contextmanager
+def train_fault(kind: str):
+    """Plant one fault for the steps inside: ``local_bn`` (each rank's
+    BatchNorm statistics over its own rows, the fault the global batch's
+    statistics exist to avoid), ``no_halo_grad`` (each halo row's gradient
+    dropped, not returned to its owner), ``loss_gather_summed`` (the head's
+    gather for the loss summed over sp, so every rank's gradient counts
+    every rank's loss), ``no_tp_input_reduce`` (the split convs' input
+    gradient not summed over model)."""
     from ood_in_object_detection_torch.models import layers as L
+    from ood_in_object_detection_torch.parallel import distributed as D
+    from ood_in_object_detection_torch.parallel import spatial
+
+    if kind == "local_bn":
+        owner, attr, fault = L, "bn_axis", lambda: None
+    elif kind == "no_halo_grad":
+        owner, attr = D._HaloWindow, "backward"
+
+        def fault(ctx, g):
+            plan = ctx.plan
+            dx = g.new_zeros(ctx.shape)
+            a, b = plan.own
+            if a < b:
+                dx[..., a - plan.start:b - plan.start, :] = g[..., a - plan.lo:b - plan.lo, :]
+            return dx, None, None, None, None
+        fault = staticmethod(fault)
+    elif kind == "loss_gather_summed":
+        owner, attr = spatial.RankShard, "gather_outputs"
+
+        def fault(self, maps):
+            return [self.gather(m, summed=True)[0] for m in maps]
+    elif kind == "no_tp_input_reduce":
+        owner, attr = D._ToModel, "backward"
+        fault = staticmethod(lambda ctx, g: (g, None))
+    else:
+        raise ValueError(kind)
+    sound = vars(owner)[attr]
+    setattr(owner, attr, fault)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, sound)
+
+
+def train_world(torch, rank: int, devices, world: TrainWorld, batch, ref) -> dict:
+    """One TrainWorld on this rank: a seeded MODEL placed by shard_state on
+    the world's mesh, make_sharded_train_step on this rank's part of
+    ``batch`` (device_put_batch: its rows, on sp its slab). The first step
+    is checked on rank 0 against the single-process step ``ref`` on the
+    state gather_state gathers (twice: the digests must agree); then the
+    world's remat and fault steps, read the same way; then its timed steps
+    (CUDA events, as the first step is too; on the CPU the host's clock).
+    -> this rank's readings: loss terms, digest, halo and gather counts of
+    the first step each way, the gradient all-reduce's seconds and MB, peak
+    memory, step ms; rank 0 also the checks."""
+    from ood_in_object_detection_torch.models import build_model, init_weights
     from ood_in_object_detection_torch.parallel import device_put_batch, make_mesh
     from ood_in_object_detection_torch.train import trainer as TTR
 
-    torch.backends.cudnn.enabled = cudnn
-    if fault == "local_bn":
-        L.active_group = lambda: (False, None)
-    mesh = make_mesh(devices=devices)
-    dev = mesh.batch_devices[rank]
-    model = build_model(model_name, nc=NC)
-    init_weights(model, torch.Generator().manual_seed(seed))
-    model.to(dev)
+    stamps = {"entry": time.time()}
+    torch.backends.cudnn.enabled = world.cudnn
+    mesh = make_mesh(devices=devices, **world.axes)
+    place = mesh.place(rank)
+    model = build_model(MODEL, nc=NC)
+    init_weights(model, torch.Generator().manual_seed(world.seed))
+    model.to(place.device)
     p0 = {n: p.detach().clone() for n, p in TTR.trained_parameters(model)}
     cfg = TTR.TrainConfig()
     state = TTR.shard_state(TTR.init_state(model, cfg), mesh)
+    start = ({k: v.clone() for k, v in model.state_dict().items()},
+             {k: v.clone() for k, v in state.ema.items()})
     timings = {}
     step = TTR.make_sharded_train_step(model, cfg, mesh, timings=timings)
     local = device_put_batch(batch, mesh)[0]
-    on_card = dev.type == "cuda"
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    state, lb = step(state, local)
-    out = dict(rank=rank, device=str(mesh.batch_devices[rank]),
-               backend=torch.distributed.get_backend(), local_batch=int(local["images"].shape[0]),
-               loss={k: float(getattr(lb, k)) for k in ("total", "box", "cls", "dfl")})
-    if rank == 0:
-        ref = torch.load(ref_path, weights_only=True)
+    on_card = place.device.type == "cuda"
+    stamps["placed"] = time.time()
+
+    def restart():
+        model.load_state_dict(start[0])
+        state.ema = {k: v.clone() for k, v in start[1].items()}
+        state.optimizer.state.clear()
+        state.step = 0
+
+    def reading(lb, digest=False) -> dict:
+        """Loss terms; on rank 0 against the reference, on the gathered
+        state (every rank gathers), and its digest."""
+        full = TTR.gather_state(state, mesh)
+        out = dict(loss={k: float(getattr(lb, k)) for k in ("total", "box", "cls", "dfl")})
+        if full is None:
+            return out
         out["loss_rel"] = max(abs(out["loss"][k] - v) / abs(v) for k, v in ref["loss"].items())
         num = den = 0.0
-        for n, p in TTR.trained_parameters(model):
+        for n, p in TTR.trained_parameters(full.model):
             want = ref["params"][n].to(p.device) - p0[n]
             num += float(((p.detach() - p0[n]) - want).double().pow(2).sum())
             den += float(want.double().pow(2).sum())
         out["update_rel"] = (num / den) ** 0.5
-    del p0
-    if timed and on_card:
-        ms = cuda_ms(lambda: step(state, local), reps=timed, warmup=0)
-    elif timed:  # a CPU rehearsal: the host's clock
-        t0 = time.perf_counter()
-        for _ in range(timed):
+        if digest:
+            out["gathered_digest"] = state_digest(torch, full)
+        return out
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+    else:
+        t_host = time.perf_counter()
+    state, lb = step(state, local)
+    if on_card:
+        t1.record()
+        torch.cuda.synchronize()
+        first_ms = t0.elapsed_time(t1)
+    else:
+        first_ms = (time.perf_counter() - t_host) * 1e3
+    stamps["first_step"] = time.time()
+    first = reading(lb, digest=True)
+    again = TTR.gather_state(state, mesh)
+    out = dict(rank=rank, place=place._replace(device=str(place.device))._asdict(),
+               backend=torch.distributed.get_backend(), local_images=list(local["images"].shape),
+               first=first, first_step_ms=first_ms, digest=state_digest(torch, state),
+               sp=timings.get("sp", [None])[0], all_reduce_s=list(timings.get("all_reduce_s", [])),
+               all_reduce_mb=timings.get("all_reduce_bytes", 0) / 1e6)
+    if again is not None:
+        first["gather_again_equal"] = state_digest(torch, again) == first["gathered_digest"]
+    del again
+    variants = {}
+    if world.remat:
+        restart()
+        cfg.remat = True
+        try:
+            state, lb = step(state, local)
+        finally:
+            cfg.remat = False
+        variants["remat"] = reading(lb)
+    for kind in world.faults:
+        restart()
+        with train_fault(kind):
+            state, lb = step(state, local)
+        variants[kind] = reading(lb)
+    out["variants"] = variants
+    stamps["variants"] = time.time()
+    if world.timed and on_card:
+        ms = cuda_ms(lambda: step(state, local), reps=world.timed, warmup=0)
+    elif world.timed:
+        t_host = time.perf_counter()
+        for _ in range(world.timed):
             step(state, local)
-        ms = (time.perf_counter() - t0) * 1e3 / timed
-    if timed:
+        ms = (time.perf_counter() - t_host) * 1e3 / world.timed
+    if world.timed:
         out.update(step_ms=ms, images_per_s=len(batch["images"]) * 1000.0 / ms)
-    out.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
-               all_reduce_s=timings.get("all_reduce_s", []),
-               all_reduce_mb=timings.get("all_reduce_bytes", 0) / 1e6,
-               steps=state.step, digest=state_digest(torch, state))
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    out["stamps"] = dict(stamps, timed=time.time())
+    torch.backends.cudnn.enabled = True
     return out
 
 
-def dp_single_ref(torch, batch, path, model_name=MODEL, seed=SEED, cudnn=True):
-    """The single-process train step of a seeded ``model_name`` on the
-    global ``batch``, its loss terms and trained parameters saved at
-    ``path`` for dp_train_rank; -> (model, cfg, state) after the step."""
+def train_rank(rank: int, world: int, devices, worlds, batch_size: int) -> dict:
+    """One rank of a training spawn (parallel/distributed.py:spawn): the
+    TrainWorlds ``worlds`` in turn on the same ranks, each on
+    overfit_batch(batch_size) (made here, not sent) -> {key: train_world's
+    readings}."""
+    import torch
+
+    batch = overfit_batch(batch_size)
+    refs, out = {}, {}
+    for w in worlds:
+        if rank == 0 and w.ref not in refs:
+            refs[w.ref] = torch.load(w.ref, weights_only=True)
+        out[w.key] = train_world(torch, rank, devices, w, batch, refs.get(w.ref))
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+def train_summary(w: TrainWorld, ranks, wall0, batch_size) -> dict:
+    """A world's line from its ranks' readings; ``ok``: rank 0's first step
+    and remat step within DP_TRAIN_LIMITS, the gathered state equal on a
+    second gather, the ranks of each model index equal (digests), each
+    planted fault at least TRAIN_FAULT_FACTOR x over its limit, finite
+    losses."""
+    r0 = ranks[0]
+    by_model = {}
+    for r in ranks:
+        by_model.setdefault(r["place"]["model"], set()).add(r["digest"])
+
+    def factor(v):
+        return max(v["loss_rel"] / DP_TRAIN_LIMITS["loss_rel"],
+                   v["update_rel"] / DP_TRAIN_LIMITS["update_rel"])
+
+    variants = r0["variants"]
+    faults = {k: dict(v, factor=factor(v)) for k, v in variants.items() if k != "remat"}
+    sound = [v for v in (r0["first"], variants.get("remat")) if v is not None]
+    ok = bool(all(factor(v) <= 1.0 for v in sound) and r0["first"].get("gather_again_equal")
+              and all(len(d) == 1 for d in by_model.values())
+              and all(v["factor"] >= TRAIN_FAULT_FACTOR for v in faults.values())
+              and all(np.isfinite(list(r["first"]["loss"].values())).all() for r in ranks))
+    timed = [r["step_ms"] for r in ranks if "step_ms" in r]
+    first_ms = max(r["first_step_ms"] for r in ranks)
+
+    def per_rank(direction, field, scale=1.0):
+        return [(r["sp"] or {}).get(direction, {}).get(field, 0) * scale for r in ranks]
+
+    return dict(world=w.key, axes=w.axes, ranks=len(ranks), backend=r0["backend"],
+                seed=w.seed, cudnn=w.cudnn, global_batch=batch_size,
+                local_images=r0["local_images"], seconds=r0["stamps"]["timed"] - wall0,
+                loss_rel=r0["first"]["loss_rel"], update_rel=r0["first"]["update_rel"],
+                gather_again_equal=r0["first"].get("gather_again_equal"),
+                remat=variants.get("remat"), faults=faults,
+                model_index_digests_equal=all(len(d) == 1 for d in by_model.values()),
+                first_step_ms=first_ms, first_images_per_s=batch_size * 1e3 / first_ms,
+                step_ms=max(timed) if timed else None,
+                step_ms_ranks=timed,
+                images_per_s=batch_size * 1000.0 / max(timed) if timed else None,
+                halo_mb_forward=per_rank("forward", "halo_bytes", 1e-6),
+                halo_mb_backward=per_rank("backward", "halo_bytes", 1e-6),
+                exchanges_forward=per_rank("forward", "exchanges"),
+                exchanges_backward=per_rank("backward", "exchanges"),
+                gather_mb_forward=per_rank("forward", "gather_bytes", 1e-6),
+                gather_mb_backward=per_rank("backward", "gather_bytes", 1e-6),
+                wait_s_forward=per_rank("forward", "wait_s"),
+                wait_s_backward=per_rank("backward", "wait_s"),
+                all_reduce_mb=r0["all_reduce_mb"], all_reduce_s=[r["all_reduce_s"] for r in ranks],
+                peak_memory_gb=[r["peak_memory_gb"] for r in ranks],
+                stage_s={k: round(v - wall0, 2) for k, v in r0["stamps"].items()}, ok=ok)
+
+
+def train_run(torch, devices, worlds, batch_size: int) -> dict:
+    """Spawn one rank per entry of ``devices`` (PyTorch's own intra-op
+    threads a rank) and run the TrainWorlds ``worlds`` on them in turn
+    (train_rank) -> {key: train_summary}. A rank that fails or hangs
+    raises, named (spawn)."""
+    from ood_in_object_detection_torch.parallel.distributed import spawn
+
+    wall0 = time.time()
+    ranks = spawn(train_rank, devices, args=(devices, list(worlds), batch_size), join_timeout=900)
+    out = {}
+    for w in worlds:
+        out[w.key] = train_summary(w, [r[w.key] for r in ranks], wall0, batch_size)
+        wall0 = ranks[0][w.key]["stamps"]["timed"]
+    return out
+
+
+def dp_single_ref(torch, batch, path, seed=SEED, cudnn=True):
+    """The single-process train step of a seeded MODEL on the global
+    ``batch``, its loss terms and trained parameters saved at ``path`` for
+    a TrainWorld; -> (model, cfg, state) after the step."""
     from ood_in_object_detection_torch.models import build_model, init_weights
     from ood_in_object_detection_torch.train import trainer as TTR
 
-    model = build_model(model_name, nc=NC)
+    model = build_model(MODEL, nc=NC)
     init_weights(model, torch.Generator().manual_seed(seed))
     model.to(DEVICE)
     cfg = TTR.TrainConfig()
@@ -2059,25 +2303,6 @@ def dp_single_ref(torch, batch, path, model_name=MODEL, seed=SEED, cudnn=True):
                     params={n: p.detach().cpu() for n, p in TTR.trained_parameters(model)}),
                path)
     return model, cfg, state
-
-
-def dp_train_run(torch, devices, batch, ref_path, model_name=MODEL, **kw) -> dict:
-    """spawn one rank per entry of ``devices`` (``kw`` for dp_train_rank)
-    -> the ranks' readings; ``ok``: the ranks' states equal (digests), rank
-    0's agreement within DP_TRAIN_LIMITS and finite losses."""
-    from ood_in_object_detection_torch.parallel.distributed import backend_for, spawn
-
-    t0 = time.perf_counter()
-    ranks = spawn(dp_train_rank, devices, args=(devices, batch, ref_path, model_name),
-                  kwargs=kw, join_timeout=600)
-    run = dict(devices=[str(d) for d in devices], backend=backend_for(devices), world=len(ranks),
-               seconds=time.perf_counter() - t0, ranks=ranks,
-               ranks_equal=len({r["digest"] for r in ranks}) == 1)
-    r0 = ranks[0]
-    run["ok"] = bool(run["ranks_equal"] and r0["loss_rel"] <= DP_TRAIN_LIMITS["loss_rel"]
-                     and r0["update_rel"] <= DP_TRAIN_LIMITS["update_rel"]
-                     and all(np.isfinite(list(r["loss"].values())).all() for r in ranks))
-    return run
 
 
 def dp_spread(torch, n_seeds: int) -> None:
@@ -2095,19 +2320,24 @@ def dp_spread(torch, n_seeds: int) -> None:
     worst = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_spread_") as tmp:
         for s in range(n_seeds):
-            for mode in ("sound", "cudnn_off", "local_bn"):
-                ref = Path(tmp) / f"ref_{s}_{mode}.pt"
-                cudnn = mode != "cudnn_off"
-                dp_single_ref(torch, batch, ref, seed=SEED + s, cudnn=cudnn)
+            refs = {}
+            for cudnn in (True, False):
+                refs[cudnn] = str(Path(tmp) / f"ref_{s}_{cudnn}.pt")
+                dp_single_ref(torch, batch, refs[cudnn], seed=SEED + s, cudnn=cudnn)
                 torch.cuda.empty_cache()
-                r = dp_train_run(torch, [0, 0], batch, str(ref), seed=SEED + s, cudnn=cudnn,
-                                 timed=0, fault="local_bn" if mode == "local_bn" else "")
-                r0 = r["ranks"][0]
-                emit("dp_train_reading", seed=s, mode=mode, loss_rel=r0["loss_rel"],
-                     update_rel=r0["update_rel"], ranks_equal=r["ranks_equal"])
+            r = train_run(torch, [0, 0], [
+                TrainWorld("sound", {}, refs[True], faults=("local_bn",), seed=SEED + s),
+                TrainWorld("cudnn_off", {}, refs[False], seed=SEED + s, cudnn=False)],
+                TRAIN_BATCH)
+            for mode, world, v in (("sound", "sound", r["sound"]),
+                                   ("cudnn_off", "cudnn_off", r["cudnn_off"]),
+                                   ("local_bn", "sound", r["sound"]["faults"]["local_bn"])):
+                emit("dp_train_reading", seed=s, mode=mode, loss_rel=v["loss_rel"],
+                     update_rel=v["update_rel"],
+                     ranks_equal=r[world]["model_index_digests_equal"])
                 w = worst.setdefault(mode, dict(loss_rel=[], update_rel=[]))
-                w["loss_rel"].append(r0["loss_rel"])
-                w["update_rel"].append(r0["update_rel"])
+                w["loss_rel"].append(v["loss_rel"])
+                w["update_rel"].append(v["update_rel"])
     emit("dp_train_spread", seeds=n_seeds, limits=DP_TRAIN_LIMITS,
          worst={m: {k: max(v) for k, v in worst[m].items()} for m in ("sound", "cudnn_off")},
          fault_least={k: min(v) for k, v in worst["local_bn"].items()})
@@ -2160,8 +2390,9 @@ def phase_e2e_dp(torch, det, ind, ood, root, env) -> dict:
     it is the only card) on e2e_serve's checkpoint and datasets, its MSP
     and Cosine_cl_stride rows equal to the run without the flag; the
     batch-16 train step on a process group of ``device_count()`` ranks
-    (NCCL) and, with one card, on ``--device 0,0``'s two gloo ranks,
-    against the single-process step on the same global batch
+    (NCCL; with one card ``--device 0,0``'s two gloo ranks run in
+    e2e_sp_train, world data2) against the single-process step on the same
+    global batch
     (DP_TRAIN_LIMITS), every rank's state equal. -> the launches of the
     phase's predict runs."""
     from ood_in_object_detection_torch import constants as C
@@ -2222,12 +2453,16 @@ def phase_e2e_dp(torch, det, ind, ood, root, env) -> dict:
     del model, state
     torch.cuda.empty_cache()
     train = {"single_step_ms": single_ms}
-    worlds = [("nccl_all_cards", list(range(n_cards)))]
-    if n_cards == 1:
-        worlds.append(("gloo_cuda0_twice", [0, 0]))
+    if n_cards == 1:  # a world of one rank runs the single-device step, no collective
+        train["nccl_all_cards"] = "not run: one card is visible"
+        train["gloo_cuda0_twice"] = "run by e2e_sp_train (world data2), from the same reference"
+        worlds = []
+    else:
+        worlds = [("nccl_all_cards", list(range(n_cards)))]
     for key, devices in worlds:
         try:
-            r = train[key] = dp_train_run(torch, devices, batch, str(ref_path))
+            r = train[key] = train_run(torch, devices, [TrainWorld(
+                key, {}, str(ref_path), timed=DP_TRAIN_STEPS)], TRAIN_BATCH)[key]
         except Exception as e:  # noqa: BLE001 (a rank that fails fails the phase)
             failures.append(f"train {key}: {e}")
             continue
@@ -2835,6 +3070,67 @@ def phase_e2e_sp(torch, det, det16, images, env) -> tuple:
         raise AssertionError("e2e_sp: " + "; ".join(failures))
     full = {k: 0 for k in read_counters()}
     return _added(full, *[{**full, **c} for c in launches]), slab
+
+
+# spatial and tensor parallelism in training (e2e_sp_train): the batch-16
+# step on gloo worlds of card 0 named 2 or 4 times, against e2e_dp's
+# single-process step (DP_TRAIN_LIMITS). One spawn a world size: e2e_dp's
+# data 2 world of card 0 named twice, sp 2 and model 2 share the two ranks
+# of one process group (starting the ranks took 20-42 s a spawn on the
+# card's host, PERF.md section 6). Planted faults: no_halo_grad and
+# loss_gather_summed at sp 2, no_tp_input_reduce at model 2 (train_fault).
+# Timed steps after the checked ones (model 2's first step stands for its
+# own: a step takes ~15 s there, its channel slices staged through the host)
+SP_TRAIN_SPAWNS = (
+    (("data2", dict(axes=dict(data=2), timed=2)),
+     ("sp2", dict(axes=dict(sp=2), timed=1, remat=True,
+                  faults=("no_halo_grad", "loss_gather_summed"))),
+     ("model2", dict(axes=dict(model=2), faults=("no_tp_input_reduce",)))),
+    (("data2_sp2", dict(axes=dict(data=2, sp=2), timed=1)),))
+
+
+def phase_e2e_sp_train(torch, env, ref_path=None) -> None:
+    """Spatial and tensor parallelism in training: the batch-16 step of
+    yolov8l at 640 px (nc 20, TF32 off, seeded) on the gloo worlds of
+    card 0 named 2 or 4 times (SP_TRAIN_SPAWNS: e2e_dp's data 2, sp 2 and
+    model 2 on one pair of ranks, data 2 x sp 2 on four), each against the
+    single-process step on the same global batch (e2e_dp's, saved at
+    ``ref_path``, or taken here) within DP_TRAIN_LIMITS, with its planted
+    faults (train_run); one line a world, then the phase's line. A spawn
+    that fails, or a world whose check fails, fails the phase."""
+    import tempfile
+    from pathlib import Path
+
+    t_phase = time.perf_counter()
+    failures, worlds = [], {}
+    card = 0 if DEVICE == "cuda" else DEVICE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_train_") as tmp:
+        if ref_path is None:
+            ref_path = Path(tmp) / "ref.pt"
+            model, _, _ = dp_single_ref(torch, overfit_batch(TRAIN_BATCH), ref_path)
+            del model
+        torch.cuda.empty_cache()
+        for spawn_worlds in SP_TRAIN_SPAWNS:
+            spec = [TrainWorld(key, ref=str(ref_path), **kw) for key, kw in spawn_worlds]
+            devices = [card] * int(np.prod(list(spec[0].axes.values())))
+            try:
+                runs = train_run(torch, devices, spec, TRAIN_BATCH)
+            except Exception as e:  # noqa: BLE001 (a spawn that fails fails the phase)
+                failures.append(f"{[w.key for w in spec]}: {e}")
+                continue
+            for key, r in runs.items():
+                worlds[key] = r
+                emit("e2e_sp_train_world", card=env["nvidia_smi"], **r)
+                if not r["ok"]:
+                    failures.append(f"{key}: {r}")
+    emit("e2e_sp_train", model=MODEL, img_size=IMG, nc=NC, train_batch=TRAIN_BATCH,
+         card=env["nvidia_smi"], limits=DP_TRAIN_LIMITS, fault_factor=TRAIN_FAULT_FACTOR,
+         worlds={k: {f: v[f] for f in ("ok", "first_step_ms", "step_ms", "loss_rel",
+                                       "update_rel", "seconds")}
+                 for k, v in worlds.items()},
+         phase_seconds=time.perf_counter() - t_phase)
+    if failures:
+        raise AssertionError("e2e_sp_train: " + "; ".join(failures))
 
 
 def phase_xscale_stem(torch, images) -> list:
@@ -3936,9 +4232,9 @@ def step_readings(torch, batch, dtype=None, remat=False, steps=10, profile=False
 
 
 def overfit_batch(b: int) -> dict:
-    """tests/test_train.py's fixed batch at IMG: seeded uniform noise images
-    in [0, 1] and its two boxes an image (96 px there) scaled to IMG, the
-    two images' patterns alternating."""
+    """tests/test_train.py's fixed batch at IMG px: seeded uniform noise
+    images in [0, 1] and its two boxes an image (96 px there) scaled to it,
+    the two images' patterns alternating."""
     boxes = np.array([[[10, 10, 50, 50], [60, 20, 90, 80]],
                       [[20, 30, 70, 90], [5, 5, 40, 40]]], np.float32) * (IMG / 96)
     labels = np.array([[0, 1], [1, 0]], np.int32)
@@ -4347,7 +4643,8 @@ def main() -> int:
                     help="only take the card-vs-CPU reference readings of yolov8l and the "
                          "families on N seeds, sound and with a fault (reference_spread, "
                          "train_spread), and print no result")
-    ap.add_argument("--only", choices=["e2e_train", "e2e_dp", "e2e_clusters", "e2e_sp"],
+    ap.add_argument("--only", choices=["e2e_train", "e2e_dp", "e2e_clusters", "e2e_sp",
+                                       "e2e_sp_train"],
                     default="",
                     help="run this phase alone (after env and build, on a detector of its "
                          "own; e2e_dp with e2e_serve's checkpoint and datasets written "
@@ -4378,6 +4675,10 @@ def main() -> int:
         if not args.only:
             reference_spread(torch, args.reference_seeds)
         train_spread(torch, args.reference_seeds)
+        return 0
+    if args.only == "e2e_sp_train":
+        phase_e2e_sp_train(torch, env)
+        emit("done", seconds=time.perf_counter() - t_start)
         return 0
     if args.only == "e2e_train":
         rng = np.random.default_rng(SEED)
@@ -4435,6 +4736,7 @@ def main() -> int:
         det16, launches16, step16_ms = phase_e2e_bf16(torch, det, methods, ind, ood)
         launches_bundle = phase_e2e_bundle(torch, det, det16, Path(serve_root), env)
         launches_dp = phase_e2e_dp(torch, det, ind, ood, Path(serve_root), env)
+        phase_e2e_sp_train(torch, env, Path(serve_root) / "dp_train_ref.pt")
     images = ood[0]["images"]
     launches_sp, sp_slab = phase_e2e_sp(torch, det, det16, images, env)
     phase_reference(torch, det, images)

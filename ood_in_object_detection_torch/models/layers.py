@@ -30,7 +30,16 @@ window of rows its outputs read, the neighbours' halo rows included and the
 image edge padded as the op pads it (zeros for a conv, -inf for a max-pool,
 none for the VALID 2x2 average pool), with height padding 0; the resizes
 stay local, their rows aligned; an attention block runs on the gathered
-map and keeps the shard's rows. Every other op is row-local.
+map and keeps the shard's rows. Every other op is row-local. In training
+one rank holds each slab (parallel/spatial.py:RankShard) and the same
+rules exchange rows between ranks, with their gradients.
+
+On a ``model`` axis in training (train/trainer.py:shard_state) a conv
+whose weight :func:`parallel.mesh.param_spec` splits holds its slice of the
+output channels (``conv.tp``, the ``model`` axis): it computes those
+channels alone, between the tensor-parallel pair (parallel/distributed.py:
+``to_model`` at its input, ``gather_channels`` at its output), so that its
+bias, BatchNorm and SiLU run on the whole, replicated channels.
 """
 
 from __future__ import annotations
@@ -41,7 +50,8 @@ from torch import nn
 
 from ..ops.stem import silu
 from ..parallel import spatial
-from ..parallel.distributed import active_group, all_reduce_sum_autograd
+from ..parallel.distributed import (all_reduce_sum_autograd, bn_axis, gather_channels,
+                                    to_model)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -52,15 +62,27 @@ def conv_in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """``conv`` on ``x`` in x's dtype, its f32 weight (and bias) cast to it;
     the bias is added after the conv's result is rounded, as flax does. On
     an ``sp`` shard a kernel or stride taller than 1 runs on its window of
-    rows (:meth:`parallel.spatial.Shard.window`, zeros past the image)."""
+    rows (:meth:`parallel.spatial.Shard.window`, zeros past the image). A
+    conv split over a ``model`` axis (``conv.tp``) computes its slice of the
+    output channels, from the input channels of its groups, and gathers
+    the slices before the bias."""
     padding = conv.padding
     (kh, kw), (sh, _) = conv.kernel_size, conv.stride
+    groups = conv.groups
+    tp = getattr(conv, "tp", None)
+    if tp is not None:
+        x = to_model(x, tp)
+        if groups > 1:  # shard_state checked that the slices hold whole groups
+            c = x.shape[1] // tp.size
+            x = x[:, tp.index * c:(tp.index + 1) * c]
+            groups //= tp.size
     shard = spatial.current()
     if shard is not None and (kh > 1 or sh > 1):
         x = shard.window(x, kh, sh, padding[0], 0.0)
         padding = (0, padding[1])
-    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, padding,
-                 conv.dilation, conv.groups)
+    y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride, padding, conv.dilation, groups)
+    if tp is not None:
+        y = gather_channels(y, tp)
     return y if conv.bias is None else y + conv.bias.to(x.dtype)[:, None, None]
 
 
@@ -90,14 +112,18 @@ def bn_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     Inside ``parallel.distributed.global_batch`` on more than one rank the
     statistics are the global batch's, as in the JAX package's one logical
     step: the f32 sums of x and x^2 and the count are summed over the ranks
-    (with their gradient), so the running statistics come out the same on
-    every rank. (``nn.SyncBatchNorm`` would store the unbiased variance.)"""
+    of its BatchNorm axis (with their gradient), so the running statistics
+    come out the same on every rank. The count is the values this rank
+    holds: its own rows of its own images (an ``sp`` slab holds no halo
+    rows here), and the ranks of one ``model`` index alone, which hold the
+    channels whole. (``nn.SyncBatchNorm`` would store the unbiased
+    variance.)"""
     xf = x.float()
-    synced, group = active_group()
-    if synced:
+    axis = bn_axis()
+    if axis is not None:
         count = xf.new_full((1,), xf.numel() // xf.shape[1])
         sums = all_reduce_sum_autograd(
-            torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]), group)
+            torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]), axis.group)
         c = xf.shape[1]
         mean = sums[:c] / sums[-1]
         var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
@@ -651,11 +677,13 @@ class CBFuse(nn.Module):
 def check_aligned(shard, src: torch.Tensor, dst: torch.Tensor) -> None:
     """A nearest resize of ``src`` to ``dst``'s rows stays local on ``sp``
     shards only where every shard's rows of ``dst`` are its rows of ``src``
-    times one integer factor; raise NotImplementedError (ROADMAP.md A12c)
-    otherwise."""
+    times one integer factor. The equal slabs of an image
+    (parallel/spatial.py:row_spans, a whole number of rows at the largest
+    stride) always line up so; a layout that does not breaks that
+    invariant and raises ValueError."""
     (s0, sh), (d0, dh) = shard.layout(src), shard.layout(dst)
     m = sum(dh) // max(1, sum(sh))
     if sum(dh) != m * sum(sh) or any(d != m * s for d, s in zip(d0 + dh, s0 + sh)):
-        raise NotImplementedError(
-            f"a nearest resize of rows {sh} to {dh} over sp shards is not row-local "
-            "(ROADMAP.md A12c)")
+        raise ValueError(
+            f"a nearest resize of rows {sh} to {dh} over sp shards is not row-local: the "
+            "image was not split into equal slabs at the largest stride")

@@ -15,7 +15,10 @@ wherever the spec allows it, as the JAX model's gate does
 (:attr:`YOLODetector.stem_route`); ``folded_stem=False``, and every
 training-mode forward, keep the two Conv modules. On a shard of an ``sp``
 group (parallel/spatial.py) the forward runs unchanged on a slab of the
-image's rows, K4 included, and the layers exchange their halos.
+image's rows, K4 included, and the layers exchange their halos. A training
+rank's slab (spatial.RankShard) returns the raw maps gathered whole, for
+the loss: each rank's gradient flows back through its own rows alone, the
+neck maps as its rows.
 
 Training runs in f32 or in bf16 (f32 parameters, bf16 compute, as the JAX
 package's ``--dtype bfloat16``), with flax's BatchNorm (models/layers.py:
@@ -507,7 +510,10 @@ class YOLODetector(nn.Module):
         remat = self.remat and self.training and torch.is_grad_enabled()
 
         def run(m, inp):
-            return checkpoint(m, inp, use_reentrant=False) if remat else m(inp)
+            if remat:  # a recompute (a card's autograd thread) runs under this shard too
+                return checkpoint(m, inp, use_reentrant=False,
+                                  context_fn=spatial.checkpoint_contexts)
+            return m(inp)
 
         for li, ((frm, _, mod, _), m) in enumerate(zip(self.spec, self.model)):
             if li < start:
@@ -515,6 +521,9 @@ class YOLODetector(nn.Module):
             if mod == "Detect":
                 neck = [ys[i] for i in frm]
                 out = run(m, neck)
+                if isinstance(shard, spatial.RankShard):  # the loss reads whole maps
+                    out = tuple(map(shard.gather_outputs, out)) if isinstance(out, tuple) \
+                        else shard.gather_outputs(out)
                 if isinstance(out, tuple):  # one2one first (yolo.py:436-452)
                     return out[1], neck, out[0]
                 return out, neck

@@ -17,16 +17,16 @@ one card or the CPU can hold the data-parallel path.
   The ``model`` axis splits no work at inference, as in the JAX package's
   predict, whose weights are replicated over the whole mesh: each (batch
   shard, ``sp``) position runs on its ``model``-index-0 entry.
-- Training is one process per entry under ``torch.distributed``
-  (``parallel/distributed.py``, ``train/trainer.py:make_sharded_train_step``):
-  BatchNorm's statistics, the loss normalizer and the gradient are those of
-  the global batch, as in the JAX package's one logical computation.
-
-Training over ``sp`` (halos whose gradient returns to the neighbour) and
-over ``model`` (conv output channels split across devices) is ROADMAP.md
-A12c: its uses (:func:`device_put_batch`, :func:`prefetch_to_device`,
-``shard_state``, ``make_sharded_train_step``) raise NotImplementedError on
-such a mesh. :func:`param_spec`, a pure function, is ported.
+- Training is one process (rank) per entry under ``torch.distributed``
+  (``parallel/distributed.py``, ``train/trainer.py:make_sharded_train_step``),
+  rank r at the entry ``r`` of the mesh in row-major order. Each rank holds
+  its batch shard's rows and, with ``sp`` above 1, its equal slab of their
+  image height (:func:`device_put_batch`, :func:`prefetch_to_device`); with
+  ``model`` above 1, its slice of the output channels of every conv that
+  :func:`param_spec` splits (``shard_state``). BatchNorm's statistics, the
+  loss normalizer and the gradient are those of the global batch, as in the
+  JAX package's one logical computation: :func:`mesh_groups` builds the
+  process groups that carry them.
 """
 
 from __future__ import annotations
@@ -39,7 +39,6 @@ import torch
 
 AXES = ("dcn", "data", "sp", "model")
 BATCH_AXES = ("dcn", "data")
-A12C = "ROADMAP.md A12c"
 
 
 def as_device(entry) -> torch.device:
@@ -75,6 +74,7 @@ class Mesh:
         if devices.ndim != len(AXES):
             raise ValueError(f"a mesh is {len(AXES)}-D, got {devices.shape}")
         self.devices = devices
+        self._groups = None  # this rank's MeshGroups, built by mesh_groups
 
     @property
     def shape(self) -> "collections.OrderedDict[str, int]":
@@ -94,17 +94,63 @@ class Mesh:
         entry at ``model`` index 0, where its outputs land."""
         return [g[0] for g in self.sp_groups]
 
+    @property
+    def size(self) -> int:
+        return self.devices.size
+
+    def place(self, rank: int) -> "Place":
+        """Where rank ``rank`` of a training run (one rank per entry, in
+        row-major order) sits on the mesh."""
+        dcn, data, sp, model = np.unravel_index(rank, self.devices.shape)
+        return Place(rank, int(dcn * self.devices.shape[1] + data), int(sp), int(model),
+                     self.devices.reshape(-1)[rank])
+
     def __repr__(self) -> str:
         return f"Mesh({dict(self.shape)}, {[str(d) for d in self.devices.reshape(-1)]})"
 
 
-def require_dp(mesh: Mesh, what: str) -> None:
-    """Raise NotImplementedError naming A12c unless the mesh's ``sp`` and
-    ``model`` axes are 1: training's uses of a mesh are data-parallel only."""
-    if mesh.shape["sp"] > 1 or mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh with sp={mesh.shape['sp']}, model={mesh.shape['model']}: "
-            f"spatial and tensor parallelism in training are not ported ({A12C})")
+class Place(NamedTuple):
+    """A rank's place on a mesh: its batch shard (the ("dcn", "data")
+    position, dcn-major), its ``sp`` and ``model`` indices, its device."""
+    rank: int
+    batch: int
+    sp: int
+    model: int
+    device: torch.device
+
+
+class Axis(NamedTuple):
+    """Ranks of a training run that one collective spans: ``group`` (the
+    default group when it spans every rank; None for a rank alone, where
+    nothing is exchanged), the ranks in axis order and this rank's index
+    among them."""
+    group: object
+    ranks: Tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+class MeshGroups(NamedTuple):
+    """The process groups a training rank needs on its mesh
+    (:func:`mesh_groups`):
+
+    - ``sp``: the ranks of its batch shard at its ``model`` index, in
+      height order (halos, row gathers);
+    - ``model``: the ranks of its batch shard at its ``sp`` index
+      (the tensor-parallel pair);
+    - ``reduce``: every rank at its ``model`` index (BatchNorm's sums, the
+      gradient);
+    - ``batch``: one rank per batch shard, at its ``sp`` and ``model``
+      indices (the loss normalizer and terms; BatchNorm on a gathered map).
+    """
+    place: Place
+    sp: Axis
+    model: Axis
+    reduce: Axis
+    batch: Axis
 
 
 def visible_cards() -> List[torch.device]:
@@ -202,44 +248,105 @@ def shard_params(params, mesh: Mesh) -> dict:
     return {name: param_spec(name, t, mesh.shape["model"]) for name, t in items}
 
 
-def local_shards(mesh: Mesh) -> List[Tuple[int, torch.device]]:
-    """(shard index, device) of the batch shards this process feeds: every
-    shard in one process; under a process group (one rank per mesh entry,
-    parallel/distributed.py), the rank's own."""
-    devs = mesh.batch_devices
+def mesh_groups(mesh: Mesh) -> MeshGroups:
+    """This rank's :class:`MeshGroups` on ``mesh`` under a process group of
+    one rank per entry. Every rank must call it at the same point: each
+    group spanning more than one rank and fewer than all is created with
+    ``dist.new_group`` in the same order on every rank (groups of one rank
+    need none; one spanning all ranks is the default group). Built once a
+    mesh object."""
+    if mesh._groups is not None:
+        return mesh._groups
+    dist = torch.distributed
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != mesh.size:
+        raise ValueError(f"a process group of {world} ranks on a mesh of {mesh.size} entries: "
+                         "run one rank per mesh entry (parallel/distributed.py:spawn)")
+    grid = np.arange(world).reshape(mesh.devices.shape)
+    dcn, data, sp, model = grid.shape
+    # every rank set of each kind, one row a set, in the same order on every rank
+    kinds = {
+        "sp": grid.transpose(0, 1, 3, 2).reshape(-1, sp),
+        "model": grid.reshape(-1, model),
+        "reduce": grid.transpose(3, 0, 1, 2).reshape(model, -1),
+        "batch": grid.reshape(dcn * data, sp * model).T,
+    }
+    axes = {}
+    for kind, sets in kinds.items():
+        for ranks in sets:
+            ranks = tuple(int(r) for r in ranks)
+            if 1 < len(ranks) < world:
+                group = dist.new_group(list(ranks))
+            else:
+                group = None if len(ranks) == 1 else dist.group.WORLD
+            if rank in ranks:
+                axes[kind] = Axis(group, ranks, ranks.index(rank))
+    mesh._groups = MeshGroups(mesh.place(rank), **axes)
+    return mesh._groups
+
+
+def local_shards(mesh: Mesh) -> List[Place]:
+    """The mesh places this process feeds: under a process group (one rank
+    per mesh entry, parallel/distributed.py), the rank's own; in one
+    process, every entry in rank order (on a mesh whose ``sp`` and
+    ``model`` axes are 1: its batch shards)."""
     if torch.distributed.is_available() and torch.distributed.is_initialized():
         world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
-        if world != len(devs):
-            raise ValueError(f"a process group of {world} ranks on a mesh of {len(devs)} "
-                             "batch shards: run one rank per mesh entry")
-        return [(rank, devs[rank])]
-    return list(enumerate(devs))
+        if world != mesh.size:
+            raise ValueError(f"a process group of {world} ranks on a mesh of {mesh.size} "
+                             "entries: run one rank per mesh entry")
+        return [mesh.place(rank)]
+    return [mesh.place(r) for r in range(mesh.size)]
 
 
-def _put(value, rows: slice, n: int, device):
-    if isinstance(value, torch.Tensor):
-        return value[rows].to(device)
-    if isinstance(value, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(value[rows])).to(device)
+def sp_rows(height: int, mesh: Mesh) -> List[slice]:
+    """Each ``sp`` index's slab of an image height: equal slabs of a whole
+    number of rows at the models' largest stride
+    (parallel/spatial.py:row_spans; ValueError otherwise)."""
+    from ..models.head import STRIDES
+    from .spatial import row_spans
+
+    return [slice(lo, hi) for lo, hi in row_spans(height, mesh.shape["sp"], max(STRIDES))]
+
+
+def _put(value, rows: slice, n: int, device, slab: Optional[slice]):
+    """A place's part of one batch entry: its rows of an array or tensor
+    with a leading batch dimension (and of a 4-D one, (B, H, W, C) as the
+    JAX package's images, its ``slab`` of H), or of a list of length n;
+    anything else as is."""
+    if isinstance(value, (np.ndarray, torch.Tensor)):
+        part = value[rows]
+        if slab is not None and part.ndim == 4:
+            part = part[:, slab]
+        if isinstance(part, np.ndarray):
+            part = torch.from_numpy(np.ascontiguousarray(part))
+        return part.to(device)
     if isinstance(value, (list, tuple)) and len(value) == n:
         return value[rows]
     return value
 
 
 def device_put_batch(batch, mesh: Mesh) -> list:
-    """This process's shards of a host batch (a dict of arrays with a
-    leading batch dimension, or one array): one entry per shard of
-    :func:`local_shards`, its rows on its device. A batch that does not
-    divide over the mesh raises ValueError."""
-    require_dp(mesh, "device_put_batch")
+    """This process's parts of a host batch (a dict of arrays with a
+    leading batch dimension, or one array): one entry per place of
+    :func:`local_shards`, on its device: its batch shard's rows and, on an
+    ``sp`` axis above 1, of 4-D arrays (images, (B, H, W, C)) its slab of
+    the height (:func:`sp_rows`; the JAX package's ``P(BATCH_AXES, "sp",
+    None, None)``); every other entry (labels, boxes in whole-image pixels,
+    masks) split over the batch only. A batch that does not divide over the
+    mesh, or a height that does not split, raises ValueError."""
     n = len(batch[next(iter(batch))]) if isinstance(batch, dict) else len(batch)
     rows = batch_sharding(mesh).slices(n)
     out = []
-    for i, dev in local_shards(mesh):
-        if isinstance(batch, dict):
-            out.append({k: _put(v, rows[i], n, dev) for k, v in batch.items()})
-        else:
-            out.append(_put(batch, rows[i], n, dev))
+    for pl in local_shards(mesh):
+        def put(v):
+            slab = None
+            if mesh.shape["sp"] > 1 and getattr(v, "ndim", 0) == 4:
+                slab = sp_rows(v.shape[1], mesh)[pl.sp]
+            return _put(v, rows[pl.batch], n, pl.device, slab)
+
+        out.append({k: put(v) for k, v in batch.items()} if isinstance(batch, dict)
+                   else put(batch))
     return out
 
 
@@ -249,23 +356,28 @@ TRAIN_KEYS = ("images", "gt_labels", "gt_bboxes", "gt_mask")
 def prefetch_to_device(batches: Iterable[dict], mesh: Mesh, size: int = 2):
     """Training batches from a host iterator as tensors on this process's
     device, in the trainer's layout (train/trainer.py:batch_to: images
-    (B, 3, H, W) f32): the process feeds one shard of ``mesh`` (a one-entry
-    mesh, or its rank's rows of each global batch under a process group).
-    On a card, up to ``size`` batches ahead are copied from pinned memory
-    on a side stream; each is handed over once its copy is done (the
-    current stream waits on its event)."""
+    (B, 3, H, W) f32): the process feeds one place of ``mesh`` (a one-entry
+    mesh, or its rank's part of each global batch under a process group:
+    its batch shard's rows and, on an ``sp`` axis, its slab of the images'
+    height, as :func:`device_put_batch` places them). On a card, up to
+    ``size`` batches ahead are copied from pinned memory on a side stream;
+    each is handed over once its copy is done (the current stream waits on
+    its event)."""
     from ..train.trainer import batch_to
 
-    require_dp(mesh, "prefetch_to_device")
     shards = local_shards(mesh)
     if len(shards) != 1:
         raise ValueError("prefetch_to_device feeds one device a process; a training mesh "
                          "runs one rank per entry (parallel/distributed.py:spawn)")
-    (index, device), = shards
+    (place,) = shards
+    device = place.device
     sharding = batch_sharding(mesh)
 
     def rows(b):
-        return {k: b[k][sharding.slices(len(b[k]))[index]] for k in TRAIN_KEYS}
+        part = {k: b[k][sharding.slices(len(b[k]))[place.batch]] for k in TRAIN_KEYS}
+        if mesh.shape["sp"] > 1:
+            part["images"] = part["images"][:, sp_rows(part["images"].shape[1], mesh)[place.sp]]
+        return part
 
     if device.type != "cuda" or size <= 0:
         for b in batches:

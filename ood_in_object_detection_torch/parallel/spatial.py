@@ -1,12 +1,13 @@
-"""Spatial parallelism for inference: the ``sp`` group of one batch shard
-(port of the JAX package's ``sp`` mesh axis, engine.py:predict_sharded and
-parallel/mesh.py, where XLA's SPMD partitioner splits the image height and
-inserts a halo collective-permute at every conv and pool wider than 1).
+"""Spatial parallelism: the ``sp`` shards of one batch shard (port of the
+JAX package's ``sp`` mesh axis, engine.py:predict_sharded,
+parallel/mesh.py and train/trainer.py's sharded step, where XLA's SPMD
+partitioner splits the image height and inserts a halo collective-permute
+at every conv and pool wider than 1).
 
-Here the halos are exchanged by hand. One host thread per ``sp`` entry runs
-the unchanged model forward on its rows of the image; the layers that read
-across rows (models/layers.py) ask the thread's :class:`Shard` for what they
-need, and the shards meet at a barrier per exchange:
+At inference the halos are exchanged by hand. One host thread per ``sp``
+entry runs the unchanged model forward on its rows of the image; the layers
+that read across rows (models/layers.py) ask the thread's :class:`Shard` for
+what they need, and the shards meet at a barrier per exchange:
 
 - :meth:`Shard.window`: the rows a conv or pool of kernel k, stride s and
   padding p reads for this shard's output rows, the neighbours' edge rows
@@ -22,6 +23,15 @@ input row at its anchor (row r of a stride-s op to the owner of input row
 r s), so the outputs of two ops on one map line up for a concat or a sum.
 The image splits into equal slabs of a whole number of rows at the model's
 largest stride (:func:`row_spans`), so every map's rows stay aligned.
+
+In training each shard is a rank of its own (one process a mesh entry,
+parallel/distributed.py:spawn): :class:`RankShard` answers the same
+requests through collectives with gradients over the rank's ``sp`` group
+(parallel/distributed.py: ``halo_window``, ``row_gather``), so the same
+layer rules run forward and backward; the halo rows' gradients return to
+their owners, and a gathered map's gradient comes back summed (attention,
+which keeps other rows on every rank) or as this rank's rows of its own
+(the detection loss, which every rank computes whole).
 
 Streams: every shard issues its work on the caller's current stream of each
 device of its group (one stream per device, whichever threads use it). A
@@ -44,6 +54,8 @@ import weakref
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from . import distributed as D
 
 # rows of image a shard other than the first also takes from above its own:
 # the fused stem's receptive field reaches 3 rows up, and 4 keep its input
@@ -73,6 +85,27 @@ def row_spans(height: int, sp: int, stride: int) -> List[Tuple[int, int]]:
             f"{sp * stride} (e.g. {sp * stride * max(1, height // (sp * stride))})")
     h = height // sp
     return [(i * h, (i + 1) * h) for i in range(sp)]
+
+
+def window_rows(ia: int, h: int, height: int, rank: int, k: int, s: int, p: int,
+                fill: Optional[float]) -> Tuple[int, int]:
+    """The global input rows [lo, hi) that an op of kernel height ``k``,
+    stride ``s`` and padding ``p`` reads for the output rows of the shard
+    ``rank`` holding rows [ia, ia + h) of a map of ``height`` rows. Output
+    row r belongs to the owner of input row r s; it reads rows [r s - p,
+    r s - p + k), those past the map's edges ``fill`` (None: the op reads
+    none, VALID, and a window past them raises ValueError)."""
+    ib = ia + h
+    h_out = (height + 2 * p - k) // s + 1
+    oa, ob = -(-ia // s), min(-(-ib // s), h_out)
+    if ob <= oa:
+        raise ValueError(f"sp shard {rank}: rows [{ia}, {ib}) of a map of {height} "
+                         f"leave no output row of a k{k}/s{s} op")
+    lo, hi = oa * s - p, (ob - 1) * s - p + k
+    if (lo < 0 or hi > height) and fill is None:
+        raise ValueError(f"sp shard {rank}: a VALID op reads rows [{lo}, {hi}) of "
+                         f"a map of {height}")
+    return lo, hi
 
 
 class ShardFailed(RuntimeError):
@@ -185,16 +218,7 @@ class Shard:
         past the map's edges ``fill`` (None: the op reads none, VALID)."""
         parts = self._post(x)
         starts, height = self._layout(parts)
-        ia, ib = starts[self.rank], starts[self.rank] + x.shape[-2]
-        h_out = (height + 2 * p - k) // s + 1
-        oa, ob = -(-ia // s), min(-(-ib // s), h_out)
-        if ob <= oa:
-            raise ValueError(f"sp shard {self.rank}: rows [{ia}, {ib}) of a map of {height} "
-                             f"leave no output row of a k{k}/s{s} op")
-        lo, hi = oa * s - p, (ob - 1) * s - p + k
-        if (lo < 0 or hi > height) and fill is None:
-            raise ValueError(f"sp shard {self.rank}: a VALID op reads rows [{lo}, {hi}) of "
-                             f"a map of {height}")
+        lo, hi = window_rows(starts[self.rank], x.shape[-2], height, self.rank, k, s, p, fill)
         return self._halo_rows(parts, starts, height, lo, hi, fill)
 
     def gather(self, x: torch.Tensor) -> Tuple[torch.Tensor, slice]:
@@ -228,6 +252,100 @@ class Shard:
         with self.whole_map():
             y = fn(whole)
         return y[..., rows, :]
+
+
+class RankShard:
+    """The ``sp`` shard a training rank holds (its slab of every map's rows
+    over its mesh's ``sp`` group, parallel/mesh.py:MeshGroups): the
+    requests of :class:`Shard` answered by collectives with gradients
+    (parallel/distributed.py). ``batch`` is the rank's batch axis: a block
+    run on a gathered map takes BatchNorm's statistics over it (each rank
+    of the ``sp`` group holds the whole map then). ``stats`` and
+    ``stats_back`` count the forward's and the backward's exchanges (a
+    layer recomputed under remat counts again)."""
+
+    overlap = 0  # the training forward runs no fused stem
+
+    def __init__(self, axis, batch, device):
+        self.axis, self.batch, self.device = axis, batch, device
+        self.rank = axis.index
+        self.stats, self.stats_back = ShardStats(), ShardStats()
+
+    def layout(self, x: torch.Tensor) -> Tuple[List[int], List[int]]:
+        """(first rows, heights) of every shard's part of the map."""
+        return D._timed(self.stats, D.row_layout, self.axis, x.shape[-2], x.device)
+
+    def window(self, x: torch.Tensor, k: int, s: int, p: int,
+               fill: Optional[float]) -> torch.Tensor:
+        """:meth:`Shard.window` between ranks (parallel/distributed.py:
+        halo_window): only the rows the window reads move."""
+        starts, heights = self.layout(x)
+        r, height = self.rank, sum(heights)
+        lo, hi = window_rows(starts[r], heights[r], height, r, k, s, p, fill)
+
+        def overlap(a0, a1, j):
+            a, b = max(a0, starts[j]), min(a1, starts[j] + heights[j])
+            return (j, a, b) if a < b else None
+
+        others = [j for j in range(len(heights)) if j != r]
+        recv = tuple(o for o in (overlap(lo, hi, j) for j in others) if o)
+        send = []
+        for j in others:
+            jlo, jhi = window_rows(starts[j], heights[j], height, j, k, s, p, fill)
+            o = overlap(jlo, jhi, r)
+            if o:
+                send.append((j, o[1], o[2]))
+        own = overlap(lo, hi, r) or (r, 0, 0)
+        plan = D.HaloPlan(lo, hi, starts[r], own[1:], recv, tuple(send), height, fill)
+        return D.halo_window(x, plan, self.axis, self.stats, self.stats_back)
+
+    def gather(self, x: torch.Tensor, summed: bool = True) -> Tuple[torch.Tensor, slice]:
+        """The whole map and this shard's rows of it (parallel/
+        distributed.py:row_gather; ``summed``: the backward the caller
+        needs)."""
+        starts, heights = self.layout(x)
+        whole = D.row_gather(x, self.axis, heights, summed, self.stats, self.stats_back)
+        ia = starts[self.rank]
+        return whole, slice(ia, ia + x.shape[-2])
+
+    @contextlib.contextmanager
+    def whole_map(self):
+        """Layers inside run on a whole (gathered) map, replicated over the
+        ``sp`` group: no rule applies, and BatchNorm sums over the batch
+        axis."""
+        _LOCAL.shard = None
+        try:
+            with D.global_batch(self.batch, self.batch):
+                yield
+        finally:
+            _LOCAL.shard = self
+
+    on_whole_map = Shard.on_whole_map
+
+    def gather_outputs(self, maps: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The head's maps whole, for a loss that every rank of the group
+        computes from them: each rank's gradient flows back through its own
+        rows alone."""
+        return [self.gather(m, summed=False)[0] for m in maps]
+
+
+@contextlib.contextmanager
+def acting(shard):
+    """This thread runs the forward (and backward) of ``shard`` (None: no
+    ``sp`` split)."""
+    before = current()
+    _LOCAL.shard = shard
+    try:
+        yield
+    finally:
+        _LOCAL.shard = before
+
+
+def checkpoint_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: a layer recomputed in
+    the backward (on the autograd engine's thread, on a card) runs under
+    the shard that ran its forward."""
+    return contextlib.nullcontext(), acting(current())
 
 
 def _worker(shard: Shard, fn, arg, streams: dict, out: list, index: int) -> None:

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.head import REG_MAX, make_anchors
-from ..parallel.distributed import active_group, all_reduce_sum, world_size
+from ..parallel.distributed import all_reduce_sum, loss_axis
 from .tal import assign, ciou  # noqa: F401 — ciou re-exported, as the JAX module does
 
 
@@ -61,13 +61,16 @@ def detection_loss(raw_levels: Sequence[torch.Tensor],  # 3 x (B, 4*REG_MAX+nc, 
     """Total loss times the batch size, as the reference trainer's
     (utils/loss.py v8DetectionLoss.__call__ returns loss.sum() * batch_size).
 
-    Inside ``parallel.distributed.global_batch`` on more than one rank the
-    normalizer (the target scores' sum) and the batch size are the global
-    batch's, so each rank returns its share of the JAX package's one global
-    loss: the shares, and their gradients, sum over the ranks to the global
-    loss and its gradient."""
+    Inside ``parallel.distributed.global_batch`` on more than one batch
+    shard the normalizer (the target scores' sum) and the batch size are
+    the global batch's (summed over its loss axis, one rank a batch shard),
+    so each rank returns its batch shard's share of the JAX package's one
+    global loss: the shares, and their gradients, sum over the batch shards
+    to the global loss and its gradient. (On an ``sp`` axis every rank of a
+    batch shard computes its share from the gathered maps; each one's
+    gradient flows back through its own rows, models/yolo.py.)"""
     B = raw_levels[0].shape[0]
-    synced, group = active_group()
+    axis = loss_axis()
     dev = raw_levels[0].device
     anchors, strides = make_anchors([(f.shape[2], f.shape[3]) for f in raw_levels], device=dev)
     x = flatten_levels(raw_levels)                                # (B, A, 64 + nc)
@@ -89,9 +92,9 @@ def detection_loss(raw_levels: Sequence[torch.Tensor],  # 3 x (B, 4*REG_MAX+nc, 
 
     target_scores_sum = res.target_scores.sum()
     global_b = B
-    if synced:
-        all_reduce_sum([target_scores_sum], group)
-        global_b = B * world_size(group)
+    if axis is not None:
+        all_reduce_sum([target_scores_sum], axis.group)
+        global_b = B * axis.size
     target_scores_sum = target_scores_sum.clamp(min=1.0)
     cls_loss = bce_with_logits(pred_logits, res.target_scores).sum() / target_scores_sum
 
@@ -118,7 +121,8 @@ def v10_detection_loss(raw_one2many: Sequence[torch.Tensor],
     """v10 end2end dual loss (reference utils/loss.py E2EDetectLoss): the
     one2many TAL loss (top 10) plus the one2one loss with one-to-one
     assignment (top 1). The one2one branch runs on detached features
-    (models/head.py:Detect.forward in training)."""
+    (models/head.py:Detect.forward in training). On a mesh each of the two
+    takes its normalizer and batch size over the global batch."""
     lm = detection_loss(raw_one2many, gt_labels, gt_bboxes_xyxy, gt_mask, nc,
                         assign_topk=10, **gains)
     lo = detection_loss(raw_one2one, gt_labels, gt_bboxes_xyxy, gt_mask, nc,

@@ -31,6 +31,7 @@ schedule is computed in float32, as the JAX package computes it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -40,7 +41,9 @@ import torch
 from torch import nn
 
 from ..models.layers import commit_batch_stats
-from ..parallel.distributed import all_reduce_sum, broadcast_, global_batch, world_size
+from ..parallel import spatial
+from ..parallel.distributed import (all_gather, all_reduce_sum, broadcast_, global_batch,
+                                    world_size)
 from .loss import LossBreakdown, detection_loss, v10_detection_loss
 
 f32 = np.float32
@@ -237,14 +240,18 @@ def train_step(model: nn.Module, cfg: TrainConfig, state: TrainState,
     return _step(model, cfg, state, batch, None)
 
 
-def _step(model: nn.Module, cfg: TrainConfig, state: TrainState, batch: dict, group,
+def _step(model: nn.Module, cfg: TrainConfig, state: TrainState, batch: dict, groups,
           timings: Optional[dict] = None) -> Tuple[TrainState, LossBreakdown]:
-    """:func:`train_step`; with ``group`` (a process group of more than one
-    rank, or the default group as ``dist.group.WORLD``) ``batch`` is this
-    rank's shard of the global batch: BatchNorm and the loss normalizer
-    take the global batch's sums, each rank's gradient (its share of the
-    global loss's) is summed over the ranks before the update, and the
-    loss terms returned are the global ones."""
+    """:func:`train_step`; with ``groups`` (parallel/mesh.py:MeshGroups of a
+    mesh of more than one rank) ``batch`` is this rank's part of the global
+    batch (its batch shard's rows, on an ``sp`` axis its slab of their
+    height): BatchNorm takes the global batch's sums over the ``reduce``
+    axis, the loss normalizer over the ``batch`` axis; the halos and the
+    gathered maps move over ``sp`` (parallel/spatial.py:RankShard), the
+    split convs' channels over ``model``. Each rank's gradient (its share of
+    the global loss's) is summed over the ``reduce`` axis before the update,
+    and the loss terms returned are the global ones, each batch shard's
+    counted once."""
     device = next(model.parameters()).device
     if batch["images"].shape[-1] == 3:
         batch = batch_to(batch, device)
@@ -252,21 +259,32 @@ def _step(model: nn.Module, cfg: TrainConfig, state: TrainState, batch: dict, gr
     model.remat = cfg.remat
     opt = state.optimizer
     opt.zero_grad(set_to_none=True)
-    with (global_batch(group) if group is not None else contextlib.nullcontext()):
+    shard = None
+    with contextlib.ExitStack() as ctx:
+        if groups is not None:
+            ctx.enter_context(global_batch(groups.reduce, groups.batch))
+            if groups.sp.size > 1:
+                shard = spatial.RankShard(groups.sp, groups.batch, device)
+                ctx.enter_context(spatial.acting(shard))
         lb = loss_of(model, cfg, batch)
         lb.total.backward()  # inside: remat recomputes its layers here
     lb = LossBreakdown(*(t.detach() for t in lb))
-    if group is not None:
+    if groups is not None:
         grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
-        if timings is not None:
-            _sync(device)
-            t0 = time.perf_counter()
-        all_reduce_sum(grads, group)
-        if timings is not None:
-            _sync(device)
-            timings.setdefault("all_reduce_s", []).append(time.perf_counter() - t0)
-            timings["all_reduce_bytes"] = sum(g.numel() * g.element_size() for g in grads)
-        lb = LossBreakdown(*all_reduce_sum([t.clone() for t in lb], group))
+        if groups.reduce.size > 1:
+            if timings is not None:
+                _sync(device)
+                t0 = time.perf_counter()
+            all_reduce_sum(grads, groups.reduce.group)
+            if timings is not None:
+                _sync(device)
+                timings.setdefault("all_reduce_s", []).append(time.perf_counter() - t0)
+                timings["all_reduce_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+        if timings is not None and shard is not None:
+            timings.setdefault("sp", []).append({"forward": dataclasses.asdict(shard.stats),
+                                                 "backward": dataclasses.asdict(shard.stats_back)})
+        if groups.batch.size > 1:
+            lb = LossBreakdown(*all_reduce_sum([t.clone() for t in lb], groups.batch.group))
     sgd_step(opt, cfg, state.step)
     commit_batch_stats(model)
     state.step += 1
@@ -298,20 +316,67 @@ def state_tensors(state: TrainState) -> List[torch.Tensor]:
     return out
 
 
+def _one_place(mesh, what: str):
+    from ..parallel.mesh import local_shards
+
+    shards = local_shards(mesh)
+    if len(shards) != 1:
+        raise ValueError(f"{what}: a training process holds one device; run one rank per mesh "
+                         "entry (parallel/distributed.py:spawn)")
+    return shards[0]
+
+
+def split_convs(model: nn.Module) -> List[Tuple[str, nn.Conv2d]]:
+    """(name, conv) of the convs split over a ``model`` axis
+    (:func:`shard_state`), in module order."""
+    return [(n, m) for n, m in model.named_modules() if getattr(m, "tp", None) is not None]
+
+
+def _split_over_model(state: TrainState, axis) -> None:
+    """Keep this rank's slice of the output channels of every conv that
+    parallel/mesh.py:param_spec splits over ``axis`` (the ``model`` axis),
+    of its EMA and of its momentum buffer; the conv computes that slice
+    alone (models/layers.py:conv_in_dtype)."""
+    from ..parallel.mesh import param_spec
+
+    opt, k = state.optimizer, axis.index
+    swapped = {}
+    for name, conv in state.model.named_modules():
+        if not (isinstance(conv, nn.Conv2d) and param_spec(name, conv.weight, axis.size)):
+            continue
+        if conv.groups > 1 and conv.groups % axis.size:
+            raise ValueError(f"{name}: {conv.groups} groups do not split over a model axis "
+                             f"of {axis.size}")
+        old = conv.weight
+        c = old.shape[0] // axis.size
+        rows = slice(k * c, (k + 1) * c)
+        conv.weight = nn.Parameter(old.detach()[rows].clone(), requires_grad=old.requires_grad)
+        conv.tp = axis
+        swapped[old] = (conv.weight, rows)
+        if f"{name}.weight" in state.ema:
+            state.ema[f"{name}.weight"] = state.ema[f"{name}.weight"][rows].clone()
+    for g in opt.param_groups:
+        g["params"] = [swapped[p][0] if p in swapped else p for p in g["params"]]
+    for old, (new, rows) in swapped.items():
+        st = opt.state.pop(old, None)
+        if st is not None:
+            opt.state[new] = {key: v[rows].clone() if isinstance(v, torch.Tensor) and
+                              v.shape == old.shape else v for key, v in st.items()}
+
+
 def shard_state(state: TrainState, mesh) -> TrainState:
     """Place the state on this process's device of ``mesh``
     (parallel/mesh.py; one rank per entry under a process group) and, with
     more than one rank, make every rank's state rank 0's (parameters,
     BatchNorm statistics, EMA, momentum buffers, step), so that the ranks
-    start, and stay, equal. Updated in place and returned."""
-    from ..parallel.mesh import local_shards, require_dp
+    start, and stay, equal. On a ``model`` axis above 1 each rank then keeps
+    its slice of every conv weight that ``param_spec`` splits (the output
+    channels), and of its EMA and momentum buffer; everything else stays
+    whole on every rank, as the JAX package's ``shard_state`` places it.
+    Updated in place and returned."""
+    from ..parallel.mesh import mesh_groups
 
-    require_dp(mesh, "shard_state")
-    shards = local_shards(mesh)
-    if len(shards) != 1:
-        raise ValueError("shard_state: a training process holds one device; run one rank per "
-                         "mesh entry (parallel/distributed.py:spawn)")
-    device = shards[0][1]
+    device = _one_place(mesh, "shard_state").device
     state.model.to(device)
     for n in state.ema:
         state.ema[n] = state.ema[n].to(device)
@@ -325,33 +390,96 @@ def shard_state(state: TrainState, mesh) -> TrainState:
             step = torch.tensor([state.step], dtype=torch.int64, device=device)
             broadcast_([step], src=0)
             state.step = int(step.item())
+        groups = mesh_groups(mesh)
+        if groups.model.size > 1:
+            _split_over_model(state, groups.model)
     return state
+
+
+def gather_state(state: TrainState, mesh) -> Optional[TrainState]:
+    """The whole state of a sharded run, in the single-process layout (the
+    names and shapes of ``init_state``'s, every split conv's weight, EMA
+    and momentum buffer gathered over the ``model`` axis), on the mesh's
+    first rank; None on the others. Every rank calls it (the gathers are
+    collective). The result is a TrainState of its own (a copy of the model
+    on the rank's device), which ``core/checkpoint.py:save_checkpoint``
+    writes as a single-process run's. The counterpart of the JAX package's
+    globally addressable arrays."""
+    from ..parallel.mesh import mesh_groups
+
+    axis = mesh_groups(mesh).model if world_size() > 1 else None
+    opt, split = state.optimizer, split_convs(state.model)
+    parts = []  # (name, kind, this rank's slice), gathered in one call
+    for name, conv in split:
+        key = f"{name}.weight"
+        parts.append((key, "param", conv.weight.detach()))
+        if key in state.ema:
+            parts.append((key, "ema", state.ema[key]))
+        if "momentum_buffer" in opt.state.get(conv.weight, {}):
+            parts.append((key, "momentum_buffer", opt.state[conv.weight]["momentum_buffer"]))
+    whole: Dict[str, dict] = {}
+    if parts:
+        ranks = all_gather(torch.cat([v.reshape(-1) for _, _, v in parts]), axis)
+        off = 0
+        for key, kind, v in parts:
+            whole.setdefault(key, {})[kind] = torch.cat(
+                [r[off:off + v.numel()].view_as(v).to(v.dtype) for r in ranks])
+            off += v.numel()
+    if axis is not None and torch.distributed.get_rank() != 0:
+        return None
+    tps = [conv.__dict__.pop("tp") for _, conv in split]  # process groups do not copy
+    try:
+        model = copy.deepcopy(state.model)
+    finally:
+        for (_, conv), tp in zip(split, tps):
+            conv.tp = tp
+    for name, _ in split:
+        conv = model.get_submodule(name)
+        conv.weight = nn.Parameter(whole[f"{name}.weight"]["param"],
+                                   requires_grad=conv.weight.requires_grad)
+    live = {id(p): n for n, p in state.model.named_parameters()}
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    groups = [dict(g, params=[params[live[id(p)]] for p in g["params"]])
+              for g in opt.param_groups]
+    full_opt = type(opt)(groups, **opt.defaults)
+    for p, st in opt.state.items():
+        key = live[id(p)]
+        full_opt.state[params[key]] = {
+            k: whole[key][k] if key in whole and k in whole[key]
+            else v.clone() if isinstance(v, torch.Tensor) else v for k, v in st.items()}
+    ema = {n: whole[n]["ema"] if n in whole else t.clone() for n, t in state.ema.items()}
+    return TrainState(model=model, optimizer=full_opt, ema=ema, step=state.step)
 
 
 def make_sharded_train_step(model: nn.Module, cfg: TrainConfig, mesh,
                             timings: Optional[dict] = None):
     """-> ``step(state, batch) -> (state, loss terms)``: the train step of
-    the global batch over ``mesh``'s ("dcn", "data") entries, one rank per
-    entry (parallel/distributed.py:spawn; a one-entry mesh needs no process
-    group), ``batch`` this rank's shard (parallel/mesh.py:device_put_batch
-    or prefetch_to_device). The math is the JAX package's one global step:
-    BatchNorm's statistics and the loss normalizer over the global batch,
-    the gradient summed over the ranks, so that the optimizer, the EMA and
-    the running statistics stay equal on every rank. With ``timings`` (a
-    dict) the gradient's all-reduce is timed between two synchronizations
-    (``all_reduce_s``, one entry a step, and ``all_reduce_bytes``)."""
-    from ..parallel.mesh import batch_sharding, local_shards, require_dp
+    the global batch over ``mesh``, one rank per entry
+    (parallel/distributed.py:spawn; a one-entry mesh needs no process
+    group), ``state`` placed by :func:`shard_state` and ``batch`` this
+    rank's part (parallel/mesh.py:device_put_batch or prefetch_to_device):
+    its batch shard's rows over ("dcn", "data"), its slab of their height
+    over ``sp``; on ``model`` the split convs compute their slices. The
+    math is the JAX package's one global step: BatchNorm's statistics and
+    the loss normalizer over the global batch, the gradient summed over
+    every rank of a ``model`` index, so that the optimizer, the EMA and the
+    running statistics stay equal on the ranks of a ``model`` index (bit
+    for bit). With ``timings`` (a dict) the gradient's all-reduce is timed
+    between two synchronizations (``all_reduce_s``, one entry a step, and
+    ``all_reduce_bytes``) and, on an ``sp`` axis, each step's halo and
+    gather counts forward and backward are kept (``sp``,
+    parallel/spatial.py:ShardStats)."""
+    from ..parallel.mesh import mesh_groups
 
-    require_dp(mesh, "make_sharded_train_step")
-    shards = local_shards(mesh)
-    if len(shards) != 1:
-        raise ValueError("make_sharded_train_step: a training process holds one device; run "
-                         "one rank per mesh entry (parallel/distributed.py:spawn)")
-    if len(batch_sharding(mesh).devices) == 1:  # one device: the single-device step
+    _one_place(mesh, "make_sharded_train_step")
+    if mesh.size == 1:  # one device: the single-device step
         return lambda state, batch: train_step(model, cfg, state, batch)
+    groups = mesh_groups(mesh)
 
     def step(state: TrainState, batch: dict) -> Tuple[TrainState, LossBreakdown]:
-        return _step(model, cfg, state, batch, torch.distributed.group.WORLD, timings)
+        return _step(model, cfg, state, batch, groups, timings)
 
     return step
 

@@ -11,6 +11,8 @@ and atol 1e-4 of each tensor's largest magnitude. The f32 convolutions sum
 in another order than XLA's over up to ~60 layers, and the measured worst
 case is 2.6e-5 of the largest magnitude (yolov8l, P4 raw map)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,15 @@ from torch_threads import _two_threads  # noqa: F401 (autouse)
 IMG = 96
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init(name: str, nc: int):
+    """-> (jax model, its init jitted once a process): bit-equal to the
+    eager init, which compiles each op on its first call (~50 s for
+    yolov8n on the CPU against ~15 s for one compile)."""
+    jm = jax_build_model(name, nc=nc)
+    return jm, jax.jit(lambda key, x: jm.init(key, x, train=False))
+
+
 def shared_weights(name: str, nc: int, seed: int = 0, calib=None, spread: float = 4.0,
                    bn_scale: float = 1.0):
     """-> (jax model, jax variables, torch model) holding the same weights:
@@ -36,8 +47,8 @@ def shared_weights(name: str, nc: int, seed: int = 0, calib=None, spread: float 
     back into the JAX variables. ``bn_scale`` sets every BatchNorm's scale
     before the calibration, so that each Conv block leaves activations of
     that standard deviation."""
-    jm = jax_build_model(name, nc=nc)
-    variables = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, IMG, IMG, 3)), train=False)
+    jm, init = _jax_init(name, nc)
+    variables = init(jax.random.PRNGKey(seed), jnp.zeros((1, IMG, IMG, 3)))
     tm = build_model(name, nc=nc)
     load_jax_variables(tm, export_state_dict(variables, detect_layer_idx=tm.detect_layer_idx))
     for m in tm.modules():

@@ -1,7 +1,8 @@
 """The port's mesh API (``parallel/mesh.py``) and process group
 (``parallel/distributed.py``) on the CPU: meshes of repeated 'cpu' entries
 stand for cards; on the ``sp`` and ``model`` axes predict and the server
-run (parallel/spatial.py) and training's uses refuse (ROADMAP.md A12c);
+run (parallel/spatial.py), and so do training's uses (one gloo rank per
+entry);
 ``param_spec`` equals the JAX package's on every leaf of
 yolov8n; spawned gloo ranks report failures and hangs by rank, each joined
 within 120 s at most."""
@@ -22,7 +23,6 @@ from ood_in_object_detection_torch.parallel import (batch_sharding, device_put_b
                                                     replicated, shard_params)
 from ood_in_object_detection_torch.parallel.distributed import backend_for, spawn
 from ood_in_object_detection_torch.serving import MicroBatchServer
-from ood_in_object_detection_torch.train import trainer as TTR
 from ood_in_object_detection_tpu.models import build_model as jax_build_model
 from ood_in_object_detection_tpu.parallel.mesh import param_spec as jax_param_spec
 from ood_in_object_detection_tpu.utils.weight_import import export_state_dict
@@ -72,27 +72,40 @@ def tiny_detector():
     return Detector.create("yolov8n", nc=2, img_size=64, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def training_uses():
+    """The four training uses on an sp=2 and a model=2 mesh of two gloo
+    ranks (one spawn)."""
+    batch = dict(images=np.random.default_rng(4).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32),
+                 gt_labels=np.array([[0, 1], [1, 0]], np.int32),
+                 gt_bboxes=np.array([[[4, 6, 30, 40], [30, 20, 60, 62]]] * 2, np.float32),
+                 gt_mask=np.ones((2, 2), bool))
+    images = np.random.default_rng(3).integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    return spawn(ranks.training_uses, ["cpu", "cpu"], args=(batch, images), join_timeout=120,
+                 threads=1)
+
+
 @pytest.mark.parametrize("axes", [dict(sp=2), dict(model=2)])
-def test_sp_and_model_axes_raise_a12b(axes, tiny_detector):
-    """The ``sp`` and ``model`` axes: the inference uses run (predict's
-    outputs those of the unsharded predict, the server builds); training's
-    four uses still raise NotImplementedError, now naming A12c."""
+def test_sp_and_model_axes_raise_a12b(axes, tiny_detector, training_uses):
+    """The ``sp`` and ``model`` axes (the name is from when training's uses
+    raised): the inference uses run (predict's outputs those of the
+    unsharded predict, the server builds), and so do training's four, one
+    rank per entry: device_put_batch and
+    prefetch_to_device give each rank its batch rows (on sp, its half of
+    the height), shard_state and make_sharded_train_step take a step whose
+    loss terms are the same on both ranks."""
     mesh = make_mesh(devices=["cpu"] * 4, **axes)
     images = np.random.default_rng(3).integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
-    model = tiny_detector.model
     got = tiny_detector.predict_sharded(images, mesh, conf_thres=1e-6, pre_nms_k=128)
     want = tiny_detector.predict(images, conf_thres=1e-6, pre_nms_k=128)
     np.testing.assert_array_equal(got.det.valid.numpy(), want.det.valid.numpy())
     np.testing.assert_allclose(got.det.boxes.numpy(), want.det.boxes.numpy(), rtol=1e-5,
                                atol=1e-4)
     assert MicroBatchServer(tiny_detector, batch_size=4, mesh=mesh).mesh is mesh
-    uses = [lambda: device_put_batch({"images": images}, mesh),
-            lambda: TTR.make_sharded_train_step(model, TTR.TrainConfig(), mesh),
-            lambda: TTR.shard_state(None, mesh),
-            lambda: next(prefetch_to_device([{}], mesh))]
-    for use in uses:
-        with pytest.raises(NotImplementedError, match="A12c"):
-            use()
+    a, b = (r[tuple(axes)] for r in training_uses)
+    h = 32 if "sp" in axes else 64
+    assert a["put"] == (4, h, 64, 3) and a["fed"] == (2, 3, h, 64)
+    assert a["loss"] == b["loss"] and np.isfinite(a["loss"]).all() and a["step"] == 1
 
 
 def test_param_spec_matches_jax_on_every_leaf():

@@ -99,16 +99,24 @@ def port_dicts(ts):
     return numpy_state_dict(ts.model), ema, buf
 
 
-def within(got, want, before, frac=1e-3, what="", ulps=1):
+def within(got, want, before, frac=1e-3, what="", ulps=1, floor=0.0):
     """Every entry of ``got`` within ``frac`` of the tensor's largest move
     from ``before`` (None: of its largest magnitude) plus ``ulps`` ulps of
-    the value."""
+    the value. With ``floor``, a tensor's move counts as at least ``floor``
+    times the largest move of all the tensors compared (for tensors whose
+    move is rounding noise)."""
+    def largest(k, w):
+        return np.abs(w - before[k]).max() if before is not None else np.abs(w).max()
+
+    keys = {k for k in want if k in got and not k.endswith("num_batches_tracked")
+            and not k.endswith("dfl.conv.weight")}
+    least = floor * max(largest(k, np.asarray(want[k], np.float32)) for k in keys) if floor else 0
     checked = 0
     for k, w in want.items():
-        if k not in got or k.endswith("num_batches_tracked") or k.endswith("dfl.conv.weight"):
+        if k not in keys:
             continue
         w = np.asarray(w, np.float32)
-        move = np.abs(w - before[k]).max() if before is not None else np.abs(w).max()
+        move = max(largest(k, w), least)
         tol = frac * move + ulps * np.spacing(np.abs(w))
         bad = np.abs(got[k] - w) > tol
         assert not bad.any(), (what, k, float(np.abs(got[k] - w).max()), float(move))
